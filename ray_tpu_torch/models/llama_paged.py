@@ -1,0 +1,228 @@
+"""Paged-KV inference for the Llama family: chunked prefill and
+block-table decode over a shared page pool.
+
+Counterpart of ``ray_tpu/models/llama_paged.py``. The cache is a POOL
+``[L, P, KVH, page, hd]``; a sequence owns an ordered page list (its
+block-table row, kept on the host by serve/paged_engine.py).
+
+- ``prefill_chunk`` runs one prompt chunk against the history pages plus
+  itself causally, in plain PyTorch (the reference does this step in
+  XLA, not Pallas).
+- ``paged_decode_step`` takes history attention from the page-walk
+  kernel (ops/paged_attention.py: the CUDA kernel on the card, its plain
+  version on the CPU) and merges the in-flight token's self term into
+  the ``(acc, m, l)`` triple exactly.
+
+The pool is updated IN PLACE where the reference donates it. Rows the
+reference drops (pad rows of a chunk, inactive slots) are removed on the
+host before the scatter: torch has no drop mode, and an inactive slot's
+stale block-table row may name a page another slot now writes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ray_tpu_torch.models.llama import (LlamaConfig, embed, host_array,
+                                        layer_params, resolve_device,
+                                        to_device)
+from ray_tpu_torch.models.llama_decode import (_head, _kept_rows, _mlp,
+                                               _out_proj, _project_qkv,
+                                               sample_tokens)
+from ray_tpu_torch.ops.layers import apply_rope, rope_frequencies
+from ray_tpu_torch.ops.paged_attention import clamp_page_ids, paged_attention
+
+_NEG_INF = -1e30
+
+
+def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Pool ``[L, P, KVH, page, hd]``: one page of one kv head is a
+    contiguous ``page * hd`` run, which the kernel stages whole."""
+    device = resolve_device(device)
+    shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size,
+             cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+@torch.no_grad()
+def prefill_chunk(cfg: LlamaConfig, params, cache: Dict[str, torch.Tensor],
+                  tokens: torch.Tensor, block_table: torch.Tensor,
+                  ctx0: int, n_valid: int
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """One prompt chunk of ONE sequence: tokens [1, C] (padded) at global
+    positions ctx0 .. ctx0+n_valid-1; block_table [MAXP] covers the pages
+    allocated so far (history and this chunk). Attends to positions
+    < ctx0 through the pages plus itself causally, writes its valid rows'
+    K/V into the pool in place, and returns (cache, logits [1, vocab]
+    f32 at the chunk's last valid token)."""
+    ctx0, n_valid = int(ctx0), int(n_valid)
+    dev = cache["k"].device
+    C = tokens.shape[1]
+    hd = cfg.head_dim_
+    num_pages, page = cache["k"].shape[1], cache["k"].shape[3]
+    bt = clamp_page_ids(to_device(block_table, dev), num_pages)
+    MAXP = bt.shape[0]
+    T_hist = MAXP * page
+    KVH = cfg.num_kv_heads
+    rep = cfg.num_heads // KVH
+    x = embed(cfg, params, to_device(tokens, dev))            # [1, C, h]
+    cos, sin = rope_frequencies(hd, T_hist, cfg.rope_theta, dtype=cfg.dtype,
+                                scaling=cfg.rope_scaling_dict, device=dev)
+    pos_c = ctx0 + torch.arange(C, device=dev)                # [C]
+    hist_mask = (torch.arange(T_hist, device=dev) < ctx0)[None, None, None]
+    ci = torch.arange(C, device=dev)
+    self_mask = (ci[:, None] >= ci[None, :])[:, None, None]   # [C,1,1,C]
+    scale = 1.0 / math.sqrt(hd)
+    # pool slots of the valid rows: page bt[pos // page], offset pos % page
+    pos_v = pos_c[:n_valid]
+    pidx = bt[(pos_v // page).clamp(0, MAXP - 1)]
+    poff = pos_v % page
+    for l in range(cfg.num_layers):
+        p = layer_params(params, l)
+        kp, vp = cache["k"][l], cache["v"][l]                 # [P,KVH,pg,hd]
+        q, k, v, _ = _project_qkv(cfg, p, x)
+        q = apply_rope(q, cos, sin, positions=pos_c[None])
+        k = apply_rope(k, cos, sin, positions=pos_c[None])
+        ks = kp[bt].movedim(1, 0).reshape(KVH, T_hist, hd)
+        vs = vp[bt].movedim(1, 0).reshape(KVH, T_hist, hd)
+        q2 = q[0].reshape(C, KVH, rep, hd).float()
+        s_hist = torch.einsum("ckgd,ktd->ckgt", q2, ks.float()) * scale
+        s_hist = torch.where(hist_mask, s_hist, _NEG_INF)
+        s_self = torch.einsum("ckgd,ukd->ckgu", q2, k[0].float()) * scale
+        s_self = torch.where(self_mask, s_self, _NEG_INF)
+        probs = torch.softmax(torch.cat([s_hist, s_self], -1),
+                              dim=-1).to(cfg.dtype)
+        attn = (torch.einsum("ckgt,ktd->ckgd", probs[..., :T_hist], vs)
+                + torch.einsum("ckgu,ukd->ckgd", probs[..., T_hist:], v[0]))
+        x = x + _out_proj(cfg, p, attn.reshape(1, C, -1))
+        x = x + _mlp(cfg, p, x)
+        kp[pidx, :, poff] = k[0, :n_valid]
+        vp[pidx, :, poff] = v[0, :n_valid]
+    x_last = x[:, max(n_valid - 1, 0)]                        # [1, h]
+    return cache, _head(cfg, params, x_last)
+
+
+def _paged_decode(cfg: LlamaConfig, params, cache, tokens, positions, rows,
+                  block_table, cos, sin):
+    """One paged decode step; returns logits [S, vocab] f32."""
+    S = tokens.shape[0]
+    hd = cfg.head_dim_
+    KVH = cfg.num_kv_heads
+    rep = cfg.num_heads // KVH
+    page = cache["k"].shape[3]
+    MAXP = block_table.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    x = embed(cfg, params, tokens)[:, None]                   # [S, 1, h]
+    pos = positions.long()
+    # pool slots of the active rows' new tokens
+    r_pos = pos[rows]
+    pidx = block_table[rows, (r_pos // page).clamp(0, MAXP - 1)].long()
+    poff = r_pos % page
+    for l in range(cfg.num_layers):
+        p = layer_params(params, l)
+        kp, vp = cache["k"][l], cache["v"][l]
+        q, k, v, _ = _project_qkv(cfg, p, x)
+        q = apply_rope(q, cos, sin, positions=pos[:, None])
+        k = apply_rope(k, cos, sin, positions=pos[:, None])
+        k1, v1 = k[:, 0], v[:, 0]                             # [S, KVH, hd]
+        q2 = q[:, 0].reshape(S, KVH, rep, hd)
+        acc, m, lsum = paged_attention(q2, kp, vp, block_table, positions)
+        # exact merge of the in-flight token's self term
+        s_self = torch.einsum("skgd,skd->skg", q2.float(),
+                              k1.float()) * scale
+        m_tot = torch.maximum(m, s_self)
+        alpha = torch.exp(m - m_tot)
+        p_self = torch.exp(s_self - m_tot)
+        num = acc * alpha[..., None] + p_self[..., None] * v1[:, :, None, :].float()
+        den = lsum * alpha + p_self
+        attn = (num / den.clamp_min(1e-30)[..., None]).to(cfg.dtype)
+        x = x + _out_proj(cfg, p, attn.reshape(S, 1, -1))
+        x = x + _mlp(cfg, p, x)
+        kp[pidx, :, poff] = k1[rows]
+        vp[pidx, :, poff] = v1[rows]
+    return _head(cfg, params, x[:, 0])
+
+
+def _decode_inputs(cfg, cache, tokens, positions, block_table):
+    dev = cache["k"].device
+    page = cache["k"].shape[3]
+    bt = to_device(block_table, dev, torch.int32).contiguous()
+    cos, sin = rope_frequencies(cfg.head_dim_, bt.shape[1] * page,
+                                cfg.rope_theta, dtype=cfg.dtype,
+                                scaling=cfg.rope_scaling_dict, device=dev)
+    return (dev, bt, cos, sin, to_device(tokens, dev, torch.int32),
+            to_device(positions, dev, torch.int32))
+
+
+@torch.no_grad()
+def paged_decode_step(cfg: LlamaConfig, params,
+                      cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                      positions: torch.Tensor, active,
+                      block_table: torch.Tensor
+                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """One token for every slot over paged KV. tokens/positions/active
+    [S] as the dense decode_step; block_table [S, MAXP]. The new K/V of
+    active slots lands in the pool in place. Returns (cache, logits)."""
+    dev, bt, cos, sin, toks, pos = _decode_inputs(cfg, cache, tokens,
+                                                  positions, block_table)
+    logits = _paged_decode(cfg, params, cache, toks, pos,
+                           _kept_rows(active, dev), bt, cos, sin)
+    return cache, logits
+
+
+@torch.no_grad()
+def paged_decode_chunk(cfg: LlamaConfig, params,
+                       cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                       positions: torch.Tensor, active,
+                       block_table: torch.Tensor, num_steps: int,
+                       generator: Optional[torch.Generator] = None,
+                       temperature: Optional[torch.Tensor] = None,
+                       top_k: int = 0, sample: bool = True
+                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+    """``num_steps`` paged decode steps chained on the device, with the
+    dense decode_chunk's return contract. The block table must already
+    cover positions + num_steps tokens of every active slot."""
+    dev, bt, cos, sin, toks, pos = _decode_inputs(cfg, cache, tokens,
+                                                  positions, block_table)
+    S = toks.shape[0]
+    act = to_device(host_array(active).astype(bool), dev)
+    rows = _kept_rows(active, dev)
+    if temperature is None:
+        temperature = torch.zeros((S,), dtype=torch.float32, device=dev)
+    outs = []
+    for _ in range(num_steps):
+        logits = _paged_decode(cfg, params, cache, toks, pos, rows, bt,
+                               cos, sin)
+        if sample:
+            nxt = sample_tokens(logits, generator, temperature, top_k)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks = torch.where(act, nxt, toks)
+        pos = pos + act.to(torch.int32)
+        outs.append(toks)
+    return cache, torch.stack(outs), toks, pos
+
+
+def make_paged_engine_fns(cfg: LlamaConfig, params):
+    """(prefill_fn(cache, tokens, block_table, ctx0, n_valid),
+    chunk_fn(cache, tokens, positions, active, block_table, num_steps,
+    generator, temperature, top_k, sample)) bound to cfg and params.
+    Pool geometry lives in the cache and table tensors."""
+
+    def pre(cache, tokens, block_table, ctx0, n_valid):
+        return prefill_chunk(cfg, params, cache, tokens, block_table, ctx0,
+                             n_valid)
+
+    def dec_chunk(cache, tokens, positions, active, block_table, num_steps,
+                  generator=None, temperature=None, top_k=0, sample=True):
+        return paged_decode_chunk(cfg, params, cache, tokens, positions,
+                                  active, block_table, num_steps, generator,
+                                  temperature, top_k, sample)
+
+    return pre, dec_chunk

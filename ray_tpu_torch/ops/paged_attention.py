@@ -1,0 +1,130 @@
+"""Paged-KV decode attention: the plain gather path and the page-walk
+kernel.
+
+Counterpart of ``ray_tpu/ops/paged_attention.py``. The KV cache is a
+pool of pages ``[num_pages, KVH, page, hd]`` shared by all sequences;
+each slot owns an ordered list of page ids (its block-table row).
+Both functions compute HISTORY attention only (positions < ctx_len) and
+return the un-normalised ``(acc, m, l)`` triple, so the caller merges
+the in-flight token's self term exactly (models/llama_paged.py).
+
+``paged_attention`` is the wrapper of kernel 2 (``csrc/paged_attention.cu``,
+which replaces the Pallas ``_paged_kernel``): CUDA tensors launch the
+kernel, CPU tensors run ``paged_attention_reference``. No fallback.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+_NEG_INF = -1e30
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def clamp_page_ids(ids: torch.Tensor, num_pages: int) -> torch.Tensor:
+    """Page ids as a JAX gather reads them: negative ids count from the
+    end of the pool, the rest are clamped into it."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + num_pages, ids).clamp(0, num_pages - 1)
+
+
+def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_table: torch.Tensor,
+                              ctx_len: torch.Tensor,
+                              sm_scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """History attention over paged KV by gathering every table entry.
+
+    q [S, KVH, G, hd] (rope applied); k_pages/v_pages [P, KVH, page, hd];
+    block_table [S, MAXP] int32 (entries past a slot's context are
+    masked; out-of-range ids are read as the JAX gather reads them,
+    see ``clamp_page_ids``); ctx_len [S] int32 history length (EXCLUDING the
+    in-flight token). Returns (acc f32 [S, KVH, G, hd], m f32 [S, KVH, G],
+    l f32 [S, KVH, G]); a ctx-0 slot gives acc 0, l 0, m -1e30.
+    """
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    S, KVH, G, hd = q.shape
+    P, _, page, _ = k_pages.shape
+    MAXP = block_table.shape[1]
+    T = MAXP * page
+    ids = clamp_page_ids(block_table, P)
+    # [S, MAXP, KVH, page, hd] -> [S, KVH, T, hd]
+    ks = k_pages[ids].movedim(2, 1).reshape(S, KVH, T, hd)
+    vs = v_pages[ids].movedim(2, 1).reshape(S, KVH, T, hd)
+    scores = torch.einsum("skgd,sktd->skgt", q.float(), ks.float()) * sm_scale
+    mask = (torch.arange(T, device=q.device)[None]
+            < ctx_len.to(q.device)[:, None].long())            # [S, T]
+    mask = mask[:, None, None]
+    scores = torch.where(mask, scores, _NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("skgt,sktd->skgd", p.to(vs.dtype).float(), vs.float())
+    return acc, m, l
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_table: torch.Tensor,
+                    ctx_len: torch.Tensor,
+                    sm_scale: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel 2's wrapper; shapes and result as
+    ``paged_attention_reference``. On CUDA the block table and ctx_len
+    are int32; the kernel reads only entries of pages < ceil(ctx/page),
+    and clamps those as ``clamp_page_ids`` does."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    S, KVH, G, hd = q.shape
+    if (k_pages.shape != v_pages.shape or k_pages.dim() != 4
+            or k_pages.shape[1] != KVH or k_pages.shape[3] != hd
+            or block_table.dim() != 2 or block_table.shape[0] != S
+            or tuple(ctx_len.shape) != (S,)):
+        raise ValueError(
+            f"paged_attention: shapes q {tuple(q.shape)} pages "
+            f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} table "
+            f"{tuple(block_table.shape)} ctx {tuple(ctx_len.shape)}")
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, block_table,
+                                          ctx_len, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    for t in (k_pages, v_pages, block_table, ctx_len):
+        if t.device != q.device:
+            raise ValueError("paged_attention: inputs on different devices")
+    for t in (q, k_pages, v_pages, block_table, ctx_len):
+        if not t.is_contiguous():
+            raise ValueError("paged_attention: inputs must be contiguous")
+    if q.dtype not in _DTYPE_CODES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise ValueError(f"paged_attention: dtypes q {q.dtype} pages "
+                         f"{k_pages.dtype} (float32 or bfloat16, equal)")
+    if block_table.dtype != torch.int32 or ctx_len.dtype != torch.int32:
+        raise ValueError("paged_attention: block_table and ctx_len must "
+                         "be int32")
+    P, _, page, _ = k_pages.shape
+    maxp = block_table.shape[1]
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.load()
+    acc = torch.empty((S, KVH, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((S, KVH, G), dtype=torch.float32, device=q.device)
+    l = torch.empty((S, KVH, G), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), ctx_len.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), _DTYPE_CODES[q.dtype], S, KVH, G,
+            hd, page, P, maxp, float(sm_scale), stream)
+    _build.check(lib, err, "paged_attention kernel")
+    paged_attention.launches += 1
+    return acc, m, l
+
+
+paged_attention.launches = 0  # kernel launches, for chip_smoke.py

@@ -1,0 +1,433 @@
+"""Paged-KV continuous-batching engine: page pool, prefix cache and
+chunked prefill on top of the pipelined LLMEngine loop.
+
+Counterpart of ``ray_tpu/serve/paged_engine.py``:
+
+- the KV cache is a pool of ``num_pages x page_size`` tokens shared by all
+  slots, so memory tracks the tokens in flight;
+- full prompt pages are content-hashed in a chain (a hash names the
+  whole prefix up to its page), and a new request reuses matching pages
+  with a refcount bump and prefills only its tail;
+- prompts run through bucket-sized prefill chunks, interleaved with
+  decode chunks.
+
+Decode history attention goes through the page-walk CUDA kernel
+(ops/paged_attention.py) on the card. The allocator and ``_bucket`` are
+this package's own copies; ``chain_hash`` is byte-for-byte the
+reference's blake2b, so residency digests and page handoffs agree with
+``ray_tpu`` replicas.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import logging
+import queue as _q
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.models import llama_paged
+from ray_tpu_torch.serve.llm_engine import LLMEngine, _bucket, _HostCopy
+
+log = logging.getLogger(__name__)
+
+
+class _PageAllocator:
+    """Page pool with refcounts and a chained-hash prefix cache.
+
+    Pages whose refcount drops to 0 stay cached (LRU) if they carry a
+    prefix hash; eviction reclaims them only when the free list runs
+    dry.
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.free: List[int] = list(range(num_pages))
+        self.ref = [0] * num_pages
+        self.hash2page: Dict[int, int] = {}
+        self.page2hash: Dict[int, int] = {}
+        # chain_hash -> None; order = LRU for ref==0 cached pages
+        self.lru: "collections.OrderedDict[int, None]" = \
+            collections.OrderedDict()
+
+    @staticmethod
+    def chain_hash(prev: int, page_tokens: Tuple[int, ...]) -> int:
+        """Process-stable fingerprint of the prefix ending at this page:
+        blake2b over prev-hash || token bytes (builtin hash() is salted
+        per process, so digests across replicas could never match)."""
+        h = hashlib.blake2b(prev.to_bytes(8, "little"), digest_size=8)
+        for t in page_tokens:
+            h.update(int(t).to_bytes(8, "little", signed=True))
+        return int.from_bytes(h.digest(), "little")
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n fresh pages (refcount 1), evicting cold cached prefixes as
+        needed; None (and no side effects) if the pool cannot cover."""
+        while len(self.free) < n and self.lru:
+            h, _ = self.lru.popitem(last=False)
+            pg = self.hash2page.pop(h)
+            self.page2hash.pop(pg, None)
+            self.free.append(pg)
+        if len(self.free) < n:
+            return None
+        out = [self.free.pop() for _ in range(n)]
+        for p in out:
+            self.ref[p] = 1
+        return out
+
+    def retain(self, page: int):
+        self.ref[page] += 1
+        h = self.page2hash.get(page)
+        if h is not None:
+            self.lru.pop(h, None)
+
+    def release(self, page: int):
+        self.ref[page] -= 1
+        if self.ref[page] > 0:
+            return
+        h = self.page2hash.get(page)
+        if h is not None:
+            self.lru[h] = None        # cached: reclaimable, not free
+        else:
+            self.free.append(page)
+
+    def match_prefix(self, tokens: List[int], max_tokens: int
+                     ) -> Tuple[List[int], List[int], int]:
+        """Longest cached chain of full pages covering <= max_tokens.
+        Returns (pages retained for the caller, chain hashes per full
+        page of the WHOLE prompt, matched token count)."""
+        ps = self.page_size
+        hashes: List[int] = []
+        prev = 0
+        for i in range(len(tokens) // ps):
+            prev = self.chain_hash(prev, tuple(tokens[i * ps:(i + 1) * ps]))
+            hashes.append(prev)
+        pages: List[int] = []
+        for i, h in enumerate(hashes):
+            if (i + 1) * ps > max_tokens:
+                break
+            pg = self.hash2page.get(h)
+            if pg is None:
+                break
+            self.retain(pg)
+            pages.append(pg)
+        return pages, hashes, len(pages) * ps
+
+    def register(self, h: int, page: int):
+        """Publish page as the cached copy of prefix h (first writer
+        wins; the caller keeps its refcount either way)."""
+        if h not in self.hash2page and page not in self.page2hash:
+            self.hash2page[h] = page
+            self.page2hash[page] = h
+
+    def clear_prefix_cache(self):
+        """Drop all cached prefixes (page contents may be lost); in-use
+        refcounts are untouched."""
+        for h, pg in list(self.hash2page.items()):
+            if h in self.lru:
+                self.free.append(pg)
+        self.hash2page.clear()
+        self.page2hash.clear()
+        self.lru.clear()
+
+
+class PagedLLMEngine(LLMEngine):
+    """LLMEngine over a paged KV pool. Extra knobs:
+
+    page_size: tokens per page (default 64).
+    num_pages: pool size (default slots x ceil(max_len / page), the dense
+        equivalent; lower oversubscribes, higher adds prefix-cache room).
+
+    The reference's ``use_kernel`` has no counterpart: decode attention
+    always goes through ``ops.paged_attention``, the CUDA kernel on the
+    card and its plain version on the CPU.
+    """
+
+    def __init__(self, *args, page_size: int = 64,
+                 num_pages: Optional[int] = None, **kw):
+        self._page_size = int(page_size)
+        self._num_pages_arg = num_pages
+        self._prefill_tokens_computed = 0
+        self._prefix_hit_tokens = 0
+        super().__init__(*args, **kw)
+
+    # ---- program set ----------------------------------------------------
+
+    def _init_programs(self):
+        ps = self._page_size
+        self._maxp = -(-self._max_len // ps)
+        num_pages = (self._num_pages_arg
+                     if self._num_pages_arg is not None
+                     else self._num_slots * self._maxp)
+        self._alloc = _PageAllocator(num_pages, ps)
+        self._prefill_chunk, self._decode_chunk = \
+            llama_paged.make_paged_engine_fns(self._cfg, self._params)
+        self._cache = llama_paged.init_paged_cache(
+            self._cfg, num_pages, ps, self._device)
+        # chunked prefill replaces the dense engine's max_len-1 overflow
+        # bucket: long prompts run as a sequence of bucket-sized chunks
+        self._buckets = ([b for b in self._buckets
+                          if b != self._max_len - 1]
+                         or [min(128, self._max_len - 1)])
+        self._slot_bt: Dict[int, List[int]] = {}
+        self._slot_hashes: Dict[int, List[int]] = {}
+        self._slot_owned_from: Dict[int, int] = {}
+        self._bt_np = np.zeros((self._num_slots, self._maxp), np.int32)
+        self._bt_dirty = True
+        self._bt_dev = None
+        # paged admission is per request (block tables are per slot)
+        self._admit_batch = 1
+        # pool-exhausted requests park here and retry HEAD-of-line, so a
+        # large request is never starved by smaller admits behind it
+        self._retry: "collections.deque[tuple]" = collections.deque()
+
+    def _reset_device_state(self):
+        self._inflight.clear()
+        self._cache = llama_paged.init_paged_cache(
+            self._cfg, self._alloc.num_pages, self._page_size, self._device)
+        self._chain_toks = torch.zeros_like(self._chain_toks)
+        self._chain_pos = torch.zeros_like(self._chain_pos)
+        # page contents are gone: cached prefixes must not be reused
+        self._alloc.clear_prefix_cache()
+        self._bt_dirty = True
+
+    # ---- slot lifecycle --------------------------------------------------
+
+    def _drop_slot(self, slot: int):
+        pages = self._slot_bt.pop(slot, [])
+        hashes = self._slot_hashes.pop(slot, [])
+        owned_from = self._slot_owned_from.pop(slot, 0)
+        for i, pg in enumerate(pages):
+            # publish this slot's own full prompt pages for reuse before
+            # releasing (shared pages are already published)
+            if owned_from <= i < len(hashes):
+                self._alloc.register(hashes[i], pg)
+            self._alloc.release(pg)
+        super()._drop_slot(slot)
+
+    # ---- admission: prefix match + chunked prefill -----------------------
+
+    def _admit(self) -> bool:
+        admitted = False
+        while self._free and (self._retry or not self._in.empty()):
+            if self._retry:
+                item = self._retry.popleft()
+            else:
+                try:
+                    item = self._in.get_nowait()
+                except _q.Empty:
+                    break
+            req_id, toks, max_new, t0, temp, stop = item
+            with self._done_lock:
+                if self._cancelled.pop(req_id, None) is not None:
+                    continue
+            try:
+                toks = [int(t) for t in toks]
+                if not toks:
+                    raise ValueError("empty prompt")
+            except (TypeError, ValueError) as e:
+                with self._done_lock:
+                    self._done[req_id] = ValueError(
+                        f"request rejected: {e!r}")
+                continue
+            if len(toks) >= self._max_len:
+                toks = toks[: self._max_len - 1]
+            plen = len(toks)
+            ps = self._page_size
+            total_pages = -(-plen // ps)
+            if total_pages > self._alloc.num_pages:
+                # no decode finish can ever free enough pages: requeueing
+                # would livelock admission
+                with self._done_lock:
+                    self._done[req_id] = RuntimeError(
+                        f"prompt needs {total_pages} KV pages but the "
+                        f"pool has only {self._alloc.num_pages}; raise "
+                        f"num_pages or shorten the prompt")
+                continue
+            # at least the prompt's LAST token must run through prefill
+            # (its logits seed generation): cap the match
+            shared, hashes, matched = self._alloc.match_prefix(
+                toks, plen - 1)
+            fresh = self._alloc.alloc(total_pages - len(shared))
+            if fresh is None:
+                for pg in shared:
+                    self._alloc.release(pg)
+                # pool exhausted: park head-of-line, stop admitting
+                self._retry.appendleft(item)
+                break
+            slot = self._free.pop()
+            pages = shared + fresh
+            self._slot_bt[slot] = pages
+            self._slot_hashes[slot] = hashes
+            self._slot_owned_from[slot] = len(shared)
+            self._prefix_hit_tokens += matched
+            self._set_bt_row(slot, pages)
+            try:
+                firsts = self._run_prefill(slot, toks, matched, temp)
+            except Exception as e:  # noqa: BLE001 — fail THIS request
+                log.exception("prefill failed")
+                # this slot's fresh pages hold no valid K/V: they must
+                # NOT be published as cached prefixes
+                self._slot_hashes[slot] = []
+                self._drop_slot(slot)
+                with self._done_lock:
+                    self._done[req_id] = ValueError(
+                        f"request rejected: {e!r}")
+                continue
+            self._slot_temp[slot] = temp
+            self._slot_stop[slot] = stop
+            self._slot_req[slot] = req_id
+            self._slot_tokens[slot] = []
+            self._slot_budget[slot] = max_new
+            self._slot_pos[slot] = plen
+            self._slot_plen[slot] = plen
+            self._sched[slot] = 1
+            self._slot_start[slot] = t0
+            self._inflight.append(("admit", {
+                "firsts": firsts, "batch": [(req_id, slot)]}))
+            admitted = True
+        return admitted
+
+    def _has_parked_requests(self) -> bool:
+        return bool(self._retry)
+
+    def _set_bt_row(self, slot: int, pages: List[int]):
+        self._bt_np[slot, :] = 0
+        self._bt_np[slot, :len(pages)] = pages
+        self._bt_dirty = True
+
+    def _bt_device(self) -> torch.Tensor:
+        if self._bt_dirty or self._bt_dev is None:
+            self._bt_dev = self._h2d(self._bt_np)
+            self._bt_dirty = False
+        return self._bt_dev
+
+    def _run_prefill(self, slot: int, toks: List[int], ctx0: int,
+                     temp: float) -> _HostCopy:
+        """Chunked prefill of toks[ctx0:]; returns the first token's
+        host copy (reaped asynchronously)."""
+        bt_row = self._h2d(self._bt_np[slot].copy())
+        logits = None
+        plen = len(toks)
+        while ctx0 < plen:
+            n = min(plen - ctx0, self._buckets[-1])
+            C = _bucket(n, self._buckets)
+            row = np.zeros((1, C), np.int32)
+            row[0, :n] = toks[ctx0:ctx0 + n]
+            self._cache, logits = self._prefill_chunk(
+                self._cache, self._h2d(row), bt_row, ctx0, n)
+            self._prefill_tokens_computed += n
+            ctx0 += n
+        firsts = self._first_tokens(logits, np.array([temp], np.float32))
+        self._merge(firsts, np.array([slot]), np.array([True]),
+                    np.array([plen], np.int32))
+        return _HostCopy(firsts)
+
+    # ---- dispatch hooks: grow block tables, paged chunk ------------------
+
+    def _prepare_dispatch(self, elig: List[int], k: int) -> List[int]:
+        """Grow block tables to cover pos+k tokens; slots the pool cannot
+        cover stall this chunk (pages free up as neighbours finish)."""
+        ps = self._page_size
+        ready = []
+        for s in elig:
+            need = -(-min(self._slot_pos[s] + k, self._max_len) // ps)
+            cur = self._slot_bt[s]
+            if need > len(cur):
+                got = self._alloc.alloc(need - len(cur))
+                if got is None:
+                    continue
+                cur.extend(got)
+                self._set_bt_row(s, cur)
+            ready.append(s)
+        return ready
+
+    def _dispatch_stalled(self, elig: List[int]) -> None:
+        if self._inflight:
+            return  # pages will free as in-flight chunks finish slots
+        # allocator wedged with nothing in flight: fail the youngest slot
+        # to guarantee progress (a cancelled victim gets no result)
+        victim = max(elig, key=lambda s: self._slot_start[s])
+        req_id = self._slot_req.pop(victim)
+        with self._done_lock:
+            if self._cancelled.pop(req_id, None) is None:
+                self._done[req_id] = RuntimeError(
+                    "kv page pool exhausted; raise num_pages")
+        self._drop_slot(victim)
+
+    def _run_chunk(self, act, k, temps, sampling):
+        (self._cache, out, self._chain_toks, self._chain_pos) = \
+            self._decode_chunk(
+                self._cache, self._chain_toks, self._chain_pos, act,
+                self._bt_device(), k, self._gen, temps,
+                self._top_k if sampling else 0, sampling)
+        return out
+
+    # ---- disaggregation surface ----------------------------------------
+
+    def export_pages(self, pages: List[int], cache: Optional[dict] = None
+                     ) -> tuple:
+        """The K/V contents of ``pages`` (pool indices) as a pair of
+        [L, n, KVH, page, hd] tensors. ``cache`` defaults to this
+        engine's pool. The caller holds refs on the pages meanwhile."""
+        cache = self._cache if cache is None else cache
+        idx = self._h2d(np.asarray(pages, np.int64))
+        return (cache["k"].index_select(1, idx),
+                cache["v"].index_select(1, idx))
+
+    def import_pages(self, k, v, hashes: List[int]) -> int:
+        """Adopt exported pages into this pool as CACHED prefixes: pages
+        are allocated, filled in place, registered under their chain
+        hashes and released into the LRU, so the next matching prompt
+        retains them through ``match_prefix``. Hashes already resident
+        are skipped. Returns the number of pages adopted (0, with
+        nothing allocated, when the pool cannot cover or all are
+        cached). Engine-thread only, like every cache update."""
+        alloc = self._alloc
+        keep = [i for i, h in enumerate(hashes)
+                if h not in alloc.hash2page]
+        if not keep:
+            return 0
+        dst = alloc.alloc(len(keep))
+        if dst is None:
+            return 0
+        dev = self._cache["k"].device
+        if len(keep) != len(hashes):
+            sel = torch.as_tensor(keep, dtype=torch.long, device=k.device)
+            k, v = k.index_select(1, sel), v.index_select(1, sel)
+        idx = self._h2d(np.asarray(dst, np.int64))
+        self._cache["k"].index_copy_(1, idx, k.to(dev))
+        self._cache["v"].index_copy_(1, idx, v.to(dev))
+        for i, pg in zip(keep, dst):
+            alloc.register(hashes[i], pg)
+            alloc.release(pg)
+        return len(keep)
+
+    def residency_digest(self, max_entries: int = 4096) -> dict:
+        """Bounded snapshot of the cached prefix fingerprints, for
+        cache-aware routing. Safe from the request thread: one dict
+        snapshot; a torn read only stales the digest until the next
+        report."""
+        alloc = self._alloc
+        try:
+            hashes = list(alloc.hash2page)
+        except RuntimeError:  # resized mid-iteration: report next tick
+            hashes = []
+        if len(hashes) > max_entries:
+            hashes = hashes[-max_entries:]
+        return {"page_size": alloc.page_size, "hashes": hashes,
+                "num_pages": alloc.num_pages}
+
+    def stats(self) -> dict:
+        st = super().stats()
+        st["queued"] += len(self._retry)  # parked pool-exhausted requests
+        st.update(
+            free_pages=len(self._alloc.free),
+            cached_prefix_pages=len(self._alloc.lru),
+            prefix_hit_tokens=self._prefix_hit_tokens,
+            prefill_tokens_computed=self._prefill_tokens_computed)
+        return st
