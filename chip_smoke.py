@@ -6,28 +6,47 @@
 Phases, each printing what it finds; any failure exits non-zero:
 
 0. the card's name and power limit; build the CUDA kernels from
-   ray_tpu_torch/csrc (timed).
-1. each kernel against its plain PyTorch version on the card at the
-   serving shapes: fp32 at atol 1e-4, bf16 at atol/rtol 2e-2 against the
-   plain version in fp32 on the same bf16 inputs. Times of the kernel,
-   the plain version and (flash) torch's scaled_dot_product_attention,
-   with the least time the card could take.
+   ray_tpu_torch/csrc (timed), with ptxas's registers and spills.
+1. each kernel against its plain PyTorch version on the card: the flash
+   forward at the serving shapes, s 2048 and the training shape (b 4,
+   s 2048, bf16), the flash backward (dQ and dK/dV) at b 1/4, s
+   128/512/2048, causal and not, sk 512 > sq 128 and d 64, the paged
+   kernel at the decode shape. fp32 at atol 1e-4 (the
+   backward also rtol 1e-4: dK sums up to sk*G products an element),
+   bf16 at atol/rtol 2e-2 against the plain version in fp32 on the same
+   bf16 inputs. Times of each kernel, its plain version and one PyTorch
+   call computing the same function (scaled_dot_product_attention, its
+   backward for the dQ/dK/dV pair), with the least time the card could
+   take. The backward is timed at the training shape.
 2. fp32, full Llama-3-8B width, 2 layers: the dense engine (flash
    prefill) and the paged engine (paged decode) give identical greedy
-   transcripts, which agree with a cache-free forward pass.
+   transcripts, which agree with a cache-free forward pass through the
+   reference attention.
 3. bf16 Llama-3-8B, all 32 layers, one shared set of random weights:
    the dense engine, then the paged engine (with a prefix-cache hit),
    each answer 8 requests with 32 tokens; the launch counters show
    their kernels ran; TTFT and ITL medians.
+4. fp32, full Llama-3-8B width, 2 layers, batch 2 x seq 256: the loss and
+   every gradient leaf through the flash kernels match the reference
+   attention's (max |dg| <= 1e-4 max |g| per leaf), and full remat
+   matches no remat.
+5. training: the run of ``ray_tpu_torch.tools.profile_train`` (Llama-3-8B
+   width, 8 layers, fp32 params, bf16 compute, full remat, batch 4 x seq
+   2048), 5 AdamW steps on one batch of random tokens; the loss is
+   finite and falls, the launch counters show the
+   forward (twice under remat) and both backward kernels ran on every
+   layer of every step; step time, tokens/s, MFU, peak memory.
 
-The second line from the end is the kernel table as JSON; the last line
-is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
-ray_tpu_torch package beside it, the script exits non-zero before any
-result.
+The second line from the end is the kernel table as JSON (launches of
+the serving kernels from phase 3, of the backward kernels from phase 5);
+the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
+without the ray_tpu_torch package beside it, the script exits non-zero
+before any result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
@@ -38,6 +57,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -81,6 +101,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
+def kernel_ms(fn, names, iters: int = 10) -> dict:
+    """Mean device time of each named kernel over ``iters`` calls of
+    ``fn`` (which may launch several kernels), from ``torch.profiler``,
+    each call after the same L2-evicting write as ``time_ms``."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in evt.name:
+                us[n] += evt.time_range.elapsed_us()
+    for n in names:
+        check(us[n] > 0, f"the profiler saw no {n} launch")
+    return {n: us[n] / 1e3 / iters for n in names}
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -105,8 +149,9 @@ def flash_phase(dev) -> dict:
     worst = 0.0
     cases = [(b, s, s, c, dt) for dt in (torch.float32, torch.bfloat16)
              for b in (1, 8) for s in (128, 512) for c in (True, False)]
-    cases += [(2, 128, 512, True, torch.float32),
-              (2, 128, 512, True, torch.bfloat16)]
+    cases += [(b, sq, sk, c, dt) for dt in (torch.float32, torch.bfloat16)
+              for b, sq, sk, c in ((2, 128, 512, True), (1, 2048, 2048, True),
+                                   (1, 2048, 2048, False))]
     for b, sq, sk, causal, dt in cases:
         q = torch.randn(b, sq, H, D, generator=g, device=dev).to(dt)
         k = torch.randn(b, sk, KVH, D, generator=g, device=dev).to(dt)
@@ -145,11 +190,133 @@ def flash_phase(dev) -> dict:
     print(f"  flash timing b={b} s={s} causal bf16: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
           f"{bnd:.4f} ms ({by})", flush=True)
+    # and at the training shape, checked and timed; the table's row keeps
+    # the serving shape's time
+    b, s = 4, 2048
+    q = torch.randn(b, s, H, D, generator=g, device=dev).to(dt)
+    k = torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
+    v = torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
+    o, lse = flash_forward(q, k, v, True)
+    o_ref, lse_ref = flash_forward_plain(q.float(), k.float(), v.float(),
+                                         True)
+    torch.cuda.synchronize()
+    ok_o, err_o = close(o, o_ref, 2e-2, 2e-2)
+    ok_l, err_l = close(lse, lse_ref, 2e-2, 2e-2)
+    print(f"  flash b={b} sq={s} sk={s} causal=True bfloat16: "
+          f"max|dO|={err_o:.3e} max|dlse|={err_l:.3e}", flush=True)
+    check(ok_o and ok_l, f"flash kernel disagrees with its plain version "
+          f"at the training shape (b={b} s={s} bf16)")
+    worst = max(worst, err_o, err_l)
+    del o, lse, o_ref, lse_ref
+    t_ms = time_ms(lambda: flash_forward(q, k, v, True), iters=10)
+    t_plain = time_ms(lambda: flash_forward_plain(q, k, v, True), iters=3)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+    t_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=10)
+    pairs = s * (s + 1) // 2
+    t_bnd, t_by = bound_ms(
+        (2 * b * s * H * D + 2 * b * s * KVH * D) * 2 + b * H * s * 4,
+        4.0 * b * H * pairs * D, dt)
+    print(f"  flash timing b={b} s={s} causal bf16 (training shape): kernel "
+          f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms, "
+          f"bound {t_bnd:.4f} ms ({t_by})", flush=True)
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "ray_tpu/ops/attention.py:78",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+
+
+def flash_bwd_phase(dev) -> list:
+    from ray_tpu_torch.ops.attention import (flash_backward,
+                                             flash_backward_plain,
+                                             flash_forward_plain)
+
+    H, KVH = 32, 8
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(b, sq, sk, D, causal, dt):
+        q = torch.randn(b, sq, H, D, generator=g, device=dev).to(dt)
+        k = torch.randn(b, sk, KVH, D, generator=g, device=dev).to(dt)
+        v = torch.randn(b, sk, KVH, D, generator=g, device=dev).to(dt)
+        do = torch.randn(b, sq, H, D, generator=g, device=dev).to(dt)
+        o, lse = flash_forward_plain(q.float(), k.float(), v.float(), causal)
+        return q, k, v, o.to(dt).contiguous(), lse, do
+
+    worst = {"dq": 0.0, "dkv": 0.0}
+    cases = [(b, s, s, 128, c, dt) for dt in (torch.float32, torch.bfloat16)
+             for b in (1, 4) for s in (128, 512, 2048) for c in (True, False)]
+    cases += [(b, sq, sk, d, c, dt) for dt in (torch.float32, torch.bfloat16)
+              for b, sq, sk, d, c in ((4, 128, 512, 128, True),
+                                      (2, 512, 512, 64, True))]
+    for b, sq, sk, D, causal, dt in cases:
+        q, k, v, o, lse, do = inputs(b, sq, sk, D, causal, dt)
+        got = flash_backward(q, k, v, o, lse, do, causal)
+        want = flash_backward_plain(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float(), causal)
+        torch.cuda.synchronize()
+        tol = (1e-4, 1e-4) if dt == torch.float32 else (2e-2, 2e-2)
+        res = [close(a, w, *tol) for a, w in zip(got, want)]
+        print(f"  flash bwd b={b} sq={sq} sk={sk} d={D} causal={causal} "
+              f"{str(dt)[6:]}: max|ddq|={res[0][1]:.3e} "
+              f"max|ddk|={res[1][1]:.3e} max|ddv|={res[2][1]:.3e} "
+              f"(max|dq| {float(want[0].abs().max()):.3e})",
+              flush=True)
+        check(all(ok for ok, _ in res), f"flash backward kernels disagree "
+              f"with their plain version (b={b} sq={sq} sk={sk} d={D} "
+              f"causal={causal} {dt})")
+        worst["dq"] = max(worst["dq"], res[0][1])
+        worst["dkv"] = max(worst["dkv"], res[1][1], res[2][1])
+        del q, k, v, o, lse, do, got, want
+
+    # timing at the training shape: b 4, s 2048, causal, bf16
+    b, s, D, dt = 4, 2048, 128, torch.bfloat16
+    q, k, v, o, lse, do = inputs(b, s, s, D, True, dt)
+    ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
+                   ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+    plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
+                                                    True), iters=3)
+    G = H // KVH
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+    kt.requires_grad_()
+    vt.requires_grad_()
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+    del out
+    pairs = s * (s + 1) // 2                        # visible (q, k) pairs
+    ins = (2 * b * s * H * D + 2 * b * s * KVH * D) * 2 + 2 * b * H * s * 4
+    rows = []
+    for name, key, flops, outs, src_line in (
+            ("flash_attention_bwd_dq", "flash_bwd_dq_kernel",
+             6.0 * b * H * pairs * D, b * s * H * D * 2, 207),
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel",
+             8.0 * b * H * pairs * D, 2 * b * s * KVH * D * 2, 253)):
+        bnd, by = bound_ms(ins + outs, flops, dt)
+        print(f"  {name} timing b={b} s={s} causal bf16: kernel "
+              f"{ks[key]:.4f} ms, bound {bnd:.4f} ms ({by}); plain "
+              f"dq+dk+dv {plain_ms:.4f} ms, sdpa backward dq+dk+dv "
+              f"{lib_ms:.4f} ms", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                     "replaces": f"ray_tpu/ops/attention.py:{src_line}",
+                     "max_abs_err": worst[name.rsplit("_", 1)[1]],
+                     "ms": ks[key], "plain_ms": plain_ms, "bound_ms": bnd,
+                     "bound_by": by, "library_ms": lib_ms})
+    # both kernels recompute S and dP: one fused backward would do 10*d
+    # FLOPs a visible pair and query head, not the pair's 6*d + 8*d
+    fused, fused_by = bound_ms(ins + b * s * H * D * 2 + 2 * b * s * KVH * D
+                               * 2, 10.0 * b * H * pairs * D, dt)
+    split = rows[0]["bound_ms"] + rows[1]["bound_ms"]
+    print(f"  flash backward floor b={b} s={s}: {fused:.4f} ms ({fused_by}) "
+          f"for one fused kernel, {split:.4f} ms for the dQ and dK/dV pair",
+          flush=True)
+    return rows
 
 
 def _paged_inputs(dev, dt, g, ctx, S=8, KVH=8, G=4, hd=128, page=64,
@@ -266,18 +433,22 @@ def stop(engine) -> None:
 
 
 def counters_reset():
-    from ray_tpu_torch.ops.attention import flash_forward
+    from ray_tpu_torch.ops.attention import flash_backward, flash_forward
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
     flash_forward.launches = 0
     paged_attention.launches = 0
+    flash_backward.dq_launches = 0
+    flash_backward.dkv_launches = 0
 
 
 def counters():
-    from ray_tpu_torch.ops.attention import flash_forward
+    """(flash forward, paged, dQ, dK/dV) launches since the last reset."""
+    from ray_tpu_torch.ops.attention import flash_backward, flash_forward
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
-    return flash_forward.launches, paged_attention.launches
+    return (flash_forward.launches, paged_attention.launches,
+            flash_backward.dq_launches, flash_backward.dkv_launches)
 
 
 def fp32_phase(dev) -> None:
@@ -300,23 +471,30 @@ def fp32_phase(dev) -> None:
     dense = LLMEngine(**kw)
     got_d = {r: v["tokens"] for r, v in drain(dense, reqs, 120).items()}
     stop(dense)
-    fl, pa = counters()
+    fl = counters()[0]
     check(fl > 0, "fp32 dense engine never launched the flash kernel")
     counters_reset()
     paged = PagedLLMEngine(page_size=64, **kw)
     got_p = {r: v["tokens"] for r, v in drain(paged, reqs, 120).items()}
     stop(paged)
-    fl2, pa2 = counters()
+    pa2 = counters()[1]
     check(pa2 > 0, "fp32 paged engine never launched the paged kernel")
     print(f"  fp32 2-layer: dense flash launches {fl}, paged launches "
           f"{pa2}; transcripts identical: {got_d == got_p}", flush=True)
     check(got_d == got_p, f"fp32 dense and paged transcripts differ:\n"
           f"{got_d}\n{got_p}")
-    # teacher-forced check against the cache-free forward pass: every
-    # generated token is the reference's argmax (up to a 1e-3 near-tie)
+    # teacher-forced check against the cache-free forward pass through
+    # the reference attention (independent of the flash kernel the dense
+    # engine ran): every generated token is its argmax (up to a 1e-3
+    # near-tie)
+    oracle = llama.LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32,
+                                         param_dtype=torch.float32,
+                                         attn_impl="reference")
     for rid, prompt in reqs:
         seq = prompt + got_d[rid]
-        logits = llama.forward(cfg, params, torch.tensor([seq], device=dev))
+        with torch.no_grad():
+            logits = llama.forward(oracle, params,
+                                   torch.tensor([seq], device=dev))
         lg = logits[0, len(prompt) - 1:len(seq) - 1]
         chosen = lg.gather(1, torch.tensor(got_d[rid], device=dev)[:, None])
         gap = float((lg.max(dim=1).values - chosen[:, 0]).max())
@@ -324,6 +502,109 @@ def fp32_phase(dev) -> None:
         check(gap <= 1e-3, f"{rid}: engine token is not the reference "
               f"argmax (logit gap {gap})")
     print("  fp32 2-layer: transcripts agree with llama.forward", flush=True)
+
+
+# ------------------------------------------------------------ phases 4, 5
+
+
+def grad_phase(dev) -> None:
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32,
+                                      param_dtype=torch.float32,
+                                      attn_impl="flash")
+    params = llama.init_params(cfg, seed=0, device=dev)
+    leaves = llama.param_leaves(params)
+    for _, leaf in leaves:
+        leaf.requires_grad_()
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (2, 257))).to(dev)
+
+    def loss_and_grads(c):
+        for _, leaf in leaves:
+            leaf.grad = None
+        loss = llama.loss_fn(c, params, {"tokens": toks})
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), [leaf.grad for _, leaf in leaves]
+
+    counters_reset()
+    l_flash, g_flash = loss_and_grads(cfg)
+    _, _, dq, dkv = counters()
+    check(dq == dkv == cfg.num_layers,
+          f"flash gradients took {dq} dQ and {dkv} dK/dV launches, want "
+          f"{cfg.num_layers} each")
+    runs = {"reference attention": replace(cfg, attn_impl="reference"),
+            "no remat": replace(cfg, remat=False)}
+    for what, c in runs.items():
+        l_other, g_other = loss_and_grads(c)
+        worst = 0.0
+        for (name, _), a, b in zip(leaves, g_flash, g_other):
+            check(bool(torch.isfinite(a).all()), f"non-finite grad {name}")
+            ratio = float((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30))
+            worst = max(worst, ratio)
+            check(ratio <= 1e-4, f"flash vs {what}: grad {name} max|dg| = "
+                  f"{ratio:.3e} max|g|")
+        dl = abs(l_flash - l_other)
+        print(f"  fp32 2-layer grads, flash vs {what}: loss {l_flash:.6f} "
+              f"vs {l_other:.6f} (|d| {dl:.2e}); worst leaf max|dg|/max|g| "
+              f"{worst:.3e} over {len(leaves)} leaves", flush=True)
+        check(dl <= 1e-4 * abs(l_other), f"flash vs {what}: loss differs")
+        del g_other
+
+
+def train_phase(dev) -> dict:
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools import profile_train as run
+
+    L, steps, b, s = run.LAYERS, 5, run.BATCH, run.SEQ
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory allocated before: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    cfg, params, opt, toks = run.build_train_run(dev)
+    check(cfg.remat and cfg.remat_policy == "full" and
+          cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32,
+          "training config is not fp32 params, bf16 compute, full remat")
+    n = llama.num_params(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    counters_reset()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = run.train_step(cfg, params, opt, toks)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    fwd, _, dq, dkv = counters()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(walls[1:])
+    tok = b * s
+    qdim = cfg.num_heads * cfg.head_dim_
+    flops = 6.0 * n * tok + 3.0 * 2.0 * 2.0 * 0.5 * L * s * tok * qdim
+    print(f"  {n / 1e9:.3f}e9 params; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"  step {step_s * 1e3:.1f} ms (median of steps 2-{steps}; first "
+          f"{walls[0] * 1e3:.1f} ms), {tok / step_s:.1f} tokens/s, MFU "
+          f"{flops / step_s / PEAK_FLOPS[torch.bfloat16]:.4f} of 989 "
+          f"TFLOP/s, peak memory {peak / 2**30:.2f} GiB", flush=True)
+    print(f"  training launches: flash forward {fwd}, dQ {dq}, dK/dV {dkv}",
+          flush=True)
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(fwd == 2 * L * steps, f"flash forward launched {fwd} times, want "
+          f"{2 * L * steps} (twice a layer a step under remat)")
+    check(dq == dkv == L * steps, f"dQ/dK/dV launched {dq}/{dkv} times, "
+          f"want {L * steps} each")
+    del params, opt, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": dq,
+            "flash_attention_bwd_dkv": dkv}
 
 
 def serve_8b_phase(dev) -> dict:
@@ -364,7 +645,7 @@ def serve_8b_phase(dev) -> dict:
         wall = time.perf_counter() - t1
         st = eng.stats()
         stop(eng)
-        launches = counters()
+        launches = counters()[:2]
         del eng
         torch.cuda.empty_cache()
         for rid, res in out.items():
@@ -427,18 +708,35 @@ def main() -> None:
     log_path = _build.BUILD_DIR / "build.log"
     if log_path.exists():
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print("  ptxas:", line.strip(), flush=True)
 
     lens = (100, 157, 214, 271, 328, 385, 442, 500)
     ctx_main = [m + 16 for m in lens]   # mid-decode history per slot
     print("phase 1: kernels against their plain versions", flush=True)
-    kernels = [flash_phase(dev), paged_phase(dev, ctx_main)]
+    fwd = flash_phase(dev)
+    dq, dkv = flash_bwd_phase(dev)
+    kernels = [fwd, paged_phase(dev, ctx_main), dq, dkv]
     print("phase 2: fp32 full width, 2 layers, dense vs paged", flush=True)
     fp32_phase(dev)
     print("phase 3: Llama-3-8B bf16, 32 layers, dense then paged",
           flush=True)
     launches = serve_8b_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 4: fp32 full width, 2 layers, gradients through the "
+          "kernels", flush=True)
+    grad_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 5: training, Llama-3-8B width, 8 layers, 5 AdamW steps",
+          flush=True)
+    train = train_phase(dev)
+    # the serving kernels' counts come from phase 3, the backward kernels'
+    # from phase 5 (the forward's training count is printed there)
+    launches.update(flash_attention_bwd_dq=train["flash_attention_bwd_dq"],
+                    flash_attention_bwd_dkv=train["flash_attention_bwd_dkv"])
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     order = ("name", "route", "source", "replaces", "launches",

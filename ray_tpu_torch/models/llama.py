@@ -1,4 +1,5 @@
-"""Llama-3-style decoder-only transformer: the inference surface.
+"""Llama-3-style decoder-only transformer: the inference and training
+surface.
 
 Counterpart of ``ray_tpu/models/llama.py``. Parameters are a plain dict
 with the reference's keys and STACKED layers (``[L, in, out]``
@@ -6,8 +7,12 @@ matmul weights, ``[L, h]`` norms), so ``models/convert.py`` moves them
 between the two packages through numpy and both compute with the same
 weights. The layer stack is a Python loop over the leading dim.
 
-Remat, scan, the loss and pipeline parallelism belong to the training
-slice and are not here.
+``forward`` is differentiable and ``loss_fn`` is the training objective:
+a train step is ``loss_fn(...).backward()`` then an optimizer step
+(``torch.optim.AdamW`` for the reference's ``optax.adamw``). Remat is
+``torch.utils.checkpoint`` around each layer. ``mesh`` arguments,
+``loss_fn_pp``, ``logical_axes`` and ``param_shardings`` wait for the
+port of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import attention_reference, flash_attention
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
@@ -80,7 +86,9 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    attn_impl: str = "reference"  # reference | flash
+    # auto = the flash kernels when the activations are CUDA tensors, the
+    # reference on the CPU (the reference package resolves it per backend)
+    attn_impl: str = "auto"  # auto | flash | reference
     # Qwen2-style additive q/k/v projection biases
     attn_qkv_bias: bool = False
     # Gemma deltas: GeGLU gate ("gelu_tanh") and sqrt(hidden) embed scale
@@ -89,6 +97,20 @@ class LlamaConfig:
     # serving prefill attention: None = the flash kernel when the tensors
     # are on CUDA, the reference path on the CPU
     prefill_flash: Optional[bool] = None
+    # torch.utils.checkpoint around each layer: the backward recomputes
+    # the layer's forward instead of keeping its activations
+    remat: bool = True
+    # partial remat: this many TRAILING layers keep their activations
+    # (0 = every layer rematerialized)
+    remat_store_layers: int = 0
+    # "full" recomputes the whole layer; "save_qkv" keeps the post-rope
+    # q, k and the v projection and recomputes the rest (see _remat_layer)
+    remat_policy: str = "full"  # full | save_qkv
+    # The reference's lax.scan over the stack (True) or unrolled loop
+    # (False). Eager PyTorch always runs a Python loop, so the knob
+    # changes nothing here but its conflict with remat_store_layers,
+    # which raises as in the reference.
+    scan_layers: bool = True
     tie_embeddings: bool = False
     # optional HF rope_scaling dict, as a tuple of items (hashable)
     rope_scaling: Optional[tuple] = None
@@ -96,10 +118,15 @@ class LlamaConfig:
     def __post_init__(self):
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
         object.__setattr__(self, "param_dtype", as_dtype(self.param_dtype))
-        if self.attn_impl not in ("reference", "flash"):
+        if self.attn_impl not in ("auto", "reference", "flash"):
             raise ValueError(
-                f"attn_impl={self.attn_impl!r}: the port has 'reference' "
-                "and 'flash' (ring/ulysses come with the training slice)")
+                f"attn_impl={self.attn_impl!r}: the port has 'auto', "
+                "'reference' and 'flash' (ring/ulysses come with the "
+                "port of parallel/)")
+        if self.remat_policy not in ("full", "save_qkv"):
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r} "
+                "(full | save_qkv)")
 
     @property
     def rope_scaling_dict(self):
@@ -125,7 +152,7 @@ class LlamaConfig:
     def tiny(cls, **kw) -> "LlamaConfig":
         cfg = cls(vocab_size=256, hidden_size=64, intermediate_size=128,
                   num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=128,
-                  dtype=torch.float32)
+                  dtype=torch.float32, remat=False)
         return replace(cfg, **kw)
 
 
@@ -202,16 +229,18 @@ def embed(cfg: LlamaConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(cfg: LlamaConfig, q, k, v):
-    if cfg.attn_impl == "flash":
+    impl = cfg.attn_impl
+    if impl == "auto":
+        impl = "flash" if q.is_cuda else "reference"
+    if impl == "flash":
         return flash_attention(q, k, v, causal=True)
     return attention_reference(q, k, v, causal=True)
 
 
-def attention_block(cfg: LlamaConfig, x, p, cos, sin):
-    """Pre-norm attention sub-block with residual."""
-    b, s, _ = x.shape
+def _qkv(cfg: LlamaConfig, h1, p, cos, sin):
+    """Post-rope q, k and the v projection of the normed input ``h1``."""
+    b, s, _ = h1.shape
     hd = cfg.head_dim_
-    h1 = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
     q = torch.matmul(h1, p["wq"].to(cfg.dtype))
     k = torch.matmul(h1, p["wk"].to(cfg.dtype))
     v = torch.matmul(h1, p["wv"].to(cfg.dtype))
@@ -221,29 +250,67 @@ def attention_block(cfg: LlamaConfig, x, p, cos, sin):
         v = v + p["bv"].to(cfg.dtype)
     q = apply_rope(q.reshape(b, s, cfg.num_heads, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, cfg.num_kv_heads, hd), cos, sin)
-    v = v.reshape(b, s, cfg.num_kv_heads, hd)
-    attn = _attend(cfg, q, k, v).reshape(b, s, cfg.num_heads * hd)
-    return x + torch.matmul(attn, p["wo"].to(cfg.dtype))
+    return q, k, v.reshape(b, s, cfg.num_kv_heads, hd)
 
 
-def _layer(cfg: LlamaConfig, x, p, cos, sin):
-    x = attention_block(cfg, x, p, cos, sin)
+def _attn_mlp(cfg: LlamaConfig, x, q, k, v, p):
+    """The layer from attention on: x + wo(attend(q, k, v)), then the
+    pre-norm MLP with its residual."""
+    b, s, _ = x.shape
+    attn = _attend(cfg, q, k, v).reshape(b, s, cfg.num_heads * cfg.head_dim_)
+    x = x + torch.matmul(attn, p["wo"].to(cfg.dtype))
     h2 = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
     return x + swiglu(h2, p["w_gate"].to(cfg.dtype), p["w_up"].to(cfg.dtype),
                       p["w_down"].to(cfg.dtype), act=cfg.mlp_act)
 
 
-@torch.no_grad()
+def _layer(cfg: LlamaConfig, x, p, cos, sin):
+    h1 = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+    return _attn_mlp(cfg, x, *_qkv(cfg, h1, p, cos, sin), p)
+
+
+def _remat_layer(cfg: LlamaConfig, x, p, cos, sin):
+    """One layer under ``torch.utils.checkpoint``.
+
+    ``full``: the layer's forward reruns in its backward; only its input
+    is kept. ``save_qkv``: the layer is split after the projections. The
+    attention-and-MLP part is checkpointed, which keeps its inputs: the
+    post-rope q, k and the v projection (the reference's ``q_rope``,
+    ``k_rope`` and ``v_proj``). The projections run outside the
+    checkpoint so that their backward needs no rerun, which keeps more
+    than the reference's names: the normed input ``h1`` and the
+    ``cfg.dtype`` casts of wq/wk/wv, as the matmuls' saved operands
+    (the norm itself is checkpointed and reruns).
+    """
+    if cfg.remat_policy == "full":
+        return checkpoint(_layer, cfg, x, p, cos, sin, use_reentrant=False)
+    h1 = checkpoint(rms_norm, x, p["attn_norm"], cfg.rms_norm_eps,
+                    use_reentrant=False)
+    q, k, v = _qkv(cfg, h1, p, cos, sin)
+    return checkpoint(_attn_mlp, cfg, x, q, k, v, p, use_reentrant=False)
+
+
 def forward(cfg: LlamaConfig, params: Dict[str, Any],
             tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [b, s] -> logits [b, s, vocab] float32."""
+    """tokens [b, s] -> logits [b, s, vocab] float32. Differentiable;
+    with ``cfg.remat`` every layer but the last ``remat_store_layers``
+    is rematerialized in the backward."""
+    n_store = min(cfg.remat_store_layers, cfg.num_layers) \
+        if cfg.remat else 0
+    if not cfg.scan_layers and n_store > 0:
+        raise ValueError(
+            "scan_layers=False and remat_store_layers>0 conflict: "
+            "partial remat is a scan-path knob in the reference package "
+            "(its unrolled loop opts out of it)")
     x = embed(cfg, params, tokens)
     cos, sin = rope_frequencies(cfg.head_dim_, tokens.shape[1],
                                 cfg.rope_theta, dtype=cfg.dtype,
                                 scaling=cfg.rope_scaling_dict,
                                 device=x.device)
+    n_remat = cfg.num_layers - n_store if cfg.remat else 0
     for l in range(cfg.num_layers):
-        x = _layer(cfg, x, layer_params(params, l), cos, sin)
+        layer = _remat_layer if l < n_remat else _layer
+        x = layer(cfg, x, layer_params(params, l), cos, sin)
     return _final_head(cfg, params, x)
 
 
@@ -254,6 +321,47 @@ def _final_head(cfg: LlamaConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.matmul(x.float(), head.to(cfg.dtype).float())
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """Token-level CE in fp32 with optional z-loss regularization; with a
+    mask, the masked mean over ``max(mask.sum(), 1)`` tokens."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = lse - true_logit
+    if z_loss:
+        nll = nll + z_loss * lse.square()
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1)
+    return nll.mean()
+
+
+def loss_fn(cfg: LlamaConfig, params, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """batch: {"tokens": [b, s], optional "mask": [b, s]}; next-token
+    prediction, the mask read from position 1 on."""
+    tokens = batch["tokens"]
+    logits = forward(cfg, params, tokens[:, :-1])
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:]
+    return cross_entropy_loss(logits, tokens[:, 1:], mask)
+
+
+def param_leaves(params, prefix: str = "") -> list:
+    """(dotted path, leaf) pairs of a nested param dict, in sorted key
+    order: the leaves an optimizer takes, named as gradients are
+    compared."""
+    out = []
+    for key in sorted(params):
+        v = params[key]
+        out += (param_leaves(v, f"{prefix}{key}.") if isinstance(v, dict)
+                else [(prefix + key, v)])
+    return out
 
 
 def num_params(params) -> int:

@@ -49,6 +49,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "rtt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _F, _P],
+    "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _P],
+    "rtt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _F, _P],
     "rtt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _P],
 }

@@ -1,17 +1,18 @@
-"""Attention: the plain reference and the flash-attention forward kernel.
+"""Attention: the plain reference and the flash-attention kernels.
 
-Counterpart of ``ray_tpu/ops/attention.py``. ``flash_forward`` is the
-wrapper of kernel 1 (``csrc/flash_fwd.cu``, which replaces the Pallas
-``_flash_kernel``): on CUDA tensors it launches the kernel, on CPU
-tensors it runs ``flash_forward_plain``, the same function in plain
-PyTorch. There is no other route and no fallback: a CUDA tensor the
-kernel cannot take raises.
+Counterpart of ``ray_tpu/ops/attention.py``. Two wrappers, each of which
+launches its CUDA kernels on CUDA tensors and runs its plain PyTorch
+version on CPU tensors. There is no other route and no fallback: a CUDA
+tensor the kernels cannot take raises.
 
-Only the forward is ported in this slice. The backward kernels (the
-Pallas ``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel``) consume the
-fp32 logsumexp that ``flash_forward`` returns; until they exist,
-``flash_attention`` refuses inputs that require grad rather than
-differentiate through the plain version.
+- ``flash_forward``: kernel 1 (``csrc/flash_fwd.cu``, replaces the Pallas
+  ``_flash_kernel``), returning O and the fp32 row logsumexp.
+- ``flash_backward``: kernels 3 and 4 (``csrc/flash_bwd.cu``, replace
+  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), recomputing
+  the probabilities from that logsumexp.
+
+``flash_attention`` is the ``torch.autograd.Function`` over the two, the
+counterpart of the reference's ``custom_vjp``.
 """
 
 from __future__ import annotations
@@ -167,25 +168,143 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_forward.launches = 0  # kernel launches, for chip_smoke.py
 
 
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, lse: torch.Tensor,
+                         do: torch.Tensor, causal: bool = True,
+                         sm_scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What the two backward kernels compute, in plain PyTorch and fp32:
+    ``delta = rowsum(dO * O)``; ``P = exp(S * scale - lse)`` with masked
+    scores at -1e30 under the causal offset; ``dS = P * (dO V^T -
+    delta)``; ``dq = scale * dS K``, ``dk = scale * dS^T Q`` and ``dv =
+    P^T dO``, the last two summed over each GQA group. Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
+    n_rep = h // kvh
+    qf, dof = q.float(), do.float()
+    kf = repeat_kv(k, n_rep).float()
+    vf = repeat_kv(v, n_rep).float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sm_scale
+    if causal:
+        s = torch.where(_causal_mask(sq, sk, q.device), s, _NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * sm_scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * sm_scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    # query head kv * n_rep + r reads kv head kv (repeat_kv's order)
+    dk = dk.reshape(b, sk, kvh, n_rep, d).sum(3)
+    dv = dv.reshape(b, sk, kvh, n_rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   causal: bool = True, sm_scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernels 3 and 4's wrapper: (dq, dk, dv) of attention with output
+    ``o`` and row logsumexp ``lse`` [b*H, sq] (``flash_forward``'s) under
+    the cotangent ``do``. CPU tensors take ``flash_backward_plain``;
+    CUDA tensors launch the dQ and the dK/dV kernel of
+    ``csrc/flash_bwd.cu`` on the current stream (head_dim 64 or 128,
+    float32 or bfloat16, contiguous) or raise. ``delta = rowsum(dO * O)``
+    is computed here with torch ops, as XLA computes it outside the
+    Pallas kernels."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or o.shape != q.shape or do.shape != q.shape
+            or tuple(lse.shape) != (b * h, sq)):
+        raise ValueError(
+            f"flash_backward: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"v {tuple(v.shape)} o {tuple(o.shape)} do {tuple(do.shape)} "
+            f"lse {tuple(lse.shape)}")
+    if h % kvh:
+        raise ValueError(f"flash_backward: {h} heads not a multiple of "
+                         f"{kvh} kv heads")
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward: unsupported device {q.device}")
+    _check_cuda("flash_backward", q, k, v, o, do)
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError("flash_backward: lse must be a contiguous float32 "
+                         "tensor on q's device")
+    if d not in (64, 128):
+        raise ValueError(f"flash_backward: head_dim {d} not supported "
+                         "(64 or 128)")
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.load()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, sq).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    args = (_DTYPE_CODES[q.dtype], b, sq, sk, h, kvh, d, int(bool(causal)),
+            float(sm_scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rtt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args, stream)
+        _build.check(lib, err, "flash_backward dQ kernel")
+        flash_backward.dq_launches += 1
+        err = lib.rtt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *args, stream)
+        _build.check(lib, err, "flash_backward dK/dV kernel")
+        flash_backward.dkv_launches += 1
+    return dq, dk, dv
+
+
+flash_backward.dq_launches = 0   # kernel launches, for chip_smoke.py
+flash_backward.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through kernel 1, backward through kernels 3 and 4 (on
+    CPU tensors, through their plain versions); saves q, k, v, O and the
+    fp32 lse, as the reference's ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = flash_forward(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, grad.contiguous(),
+                                    ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     block_q: Optional[int] = None,
                     block_k: Optional[int] = None) -> torch.Tensor:
-    """Flash attention forward. q [b, sq, H, d]; k/v [b, sk, KVH, d].
+    """Flash attention, differentiable. q [b, sq, H, d]; k/v [b, sk,
+    KVH, d].
 
     Lengths must divide the blocks (default: the largest power-of-two
-    divisor up to 512), else the reference's ``ValueError``. Forward
-    only: inputs that require grad raise until the backward kernels are
-    ported.
+    divisor up to 512), else the reference's ``ValueError``.
     """
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward in ray_tpu_torch yet: the "
-            "dQ and dK/dV kernels come with the training slice; run "
-            "under torch.no_grad() or use attention_reference")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if block_q is None:
         block_q = _auto_block(q.shape[1], DEFAULT_BLOCK_Q)
     if block_k is None:
         block_k = _auto_block(k.shape[1], DEFAULT_BLOCK_K)
     _check_blocks(q.shape[1], k.shape[1], block_q, block_k)
-    return flash_forward(q, k, v, causal, sm_scale)[0]
+    return _FlashAttention.apply(q, k, v, causal, sm_scale)
