@@ -6,18 +6,23 @@
 Phases, each printing what it finds; any failure exits non-zero:
 
 0. the card's name and power limit; build the CUDA kernels from
-   ray_tpu_torch/csrc (timed), with ptxas's registers and spills.
+   ray_tpu_torch/csrc (timed), with ptxas's registers and spills; the
+   two wgmma kernels (the bf16 flash forward and dK/dV) must contain
+   HGMMA instructions in the built library's SASS (cuobjdump).
 1. each kernel against its plain PyTorch version on the card: the flash
    forward at the serving shapes, s 2048 and the training shape (b 4,
    s 2048, bf16), the flash backward (dQ and dK/dV) at b 1/4, s
-   128/512/2048, causal and not, sk 512 > sq 128 and d 64, the paged
-   kernel at the decode shape. fp32 at atol 1e-4 (the
-   backward also rtol 1e-4: dK sums up to sk*G products an element),
-   bf16 at atol/rtol 2e-2 against the plain version in fp32 on the same
-   bf16 inputs. Times of each kernel, its plain version and one PyTorch
-   call computing the same function (scaled_dot_product_attention, its
-   backward for the dQ/dK/dV pair), with the least time the card could
-   take. The backward is timed at the training shape.
+   128/512/2048, causal and not, sk 512 > sq 128 and d 64, both with
+   ragged lengths (s 100, s 1000, sq 128 / sk 300) and d 64 in bf16, the
+   paged kernel at the decode shape. fp32 (the scalar kernels) at atol
+   1e-4 (the backward also rtol 1e-4: dK sums up to sk*G products an
+   element), bf16 (the wgmma kernels; dQ stays scalar) at atol/rtol 2e-2
+   against the plain version in fp32 on the same bf16 inputs; every bf16
+   forward and dK/dV launch must take the wgmma route. Times of each
+   kernel, its plain version and one PyTorch call computing the same
+   function (scaled_dot_product_attention, its backward for the
+   dQ/dK/dV pair), with the least time the card could take. The backward
+   is timed at the training shape.
 2. fp32, full Llama-3-8B width, 2 layers: the dense engine (flash
    prefill) and the paged engine (paged decode) give identical greedy
    transcripts, which agree with a cache-free forward pass through the
@@ -25,7 +30,8 @@ Phases, each printing what it finds; any failure exits non-zero:
 3. bf16 Llama-3-8B, all 32 layers, one shared set of random weights:
    the dense engine, then the paged engine (with a prefix-cache hit),
    each answer 8 requests with 32 tokens; the launch counters show
-   their kernels ran; TTFT and ITL medians.
+   their kernels ran, every flash launch on the wgmma route; TTFT and
+   ITL medians.
 4. fp32, full Llama-3-8B width, 2 layers, batch 2 x seq 256: the loss and
    every gradient leaf through the flash kernels match the reference
    attention's (max |dg| <= 1e-4 max |g| per leaf), and full remat
@@ -35,7 +41,8 @@ Phases, each printing what it finds; any failure exits non-zero:
    2048), 5 AdamW steps on one batch of random tokens; the loss is
    finite and falls, the launch counters show the
    forward (twice under remat) and both backward kernels ran on every
-   layer of every step; step time, tokens/s, MFU, peak memory.
+   layer of every step, the forward and dK/dV on the wgmma route; step
+   time, tokens/s, MFU, peak memory.
 
 The second line from the end is the kernel table as JSON (launches of
 the serving kernels from phase 3, of the backward kernels from phase 5);
@@ -138,21 +145,104 @@ def close(got: torch.Tensor, want: torch.Tensor, atol: float,
     return ok, float(diff.max()) if diff.numel() else 0.0
 
 
+# ---------------------------------------------------------------- phase 0
+
+# the wgmma kernels: their SASS must hold HGMMA (warpgroup MMA) instructions
+WGMMA_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+
+
+def ptxas_usage(log: str) -> dict:
+    """{mangled kernel name: (registers, spill stores, spill loads)} from
+    the ``-Xptxas=-v`` lines of the build log."""
+    usage, name, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills = (nums[1], nums[2])
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            usage[name] = (regs, *spills)
+            name, spills = None, (0, 0)
+    return usage
+
+
+def sass_hgmma_counts(lib_path) -> dict:
+    """{mangled kernel name: HGMMA instructions} for every kernel in the
+    built library, from ``cuobjdump -sass``."""
+    from ray_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def build_phase() -> None:
+    from ray_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"  kernels built in {_build.last_build_seconds:.1f} s "
+          f"(load {time.perf_counter() - t0:.1f} s): "
+          f"{_build.library_path().name}", flush=True)
+    log_path = _build.BUILD_DIR / "build.log"
+    if log_path.exists():
+        log = log_path.read_text()
+        for name, (regs, st, ld) in ptxas_usage(log).items():
+            print(f"  ptxas: {name}: {regs} registers, spill stores {st} "
+                  f"bytes, spill loads {ld} bytes", flush=True)
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"  ptxas: {line.strip()}", flush=True)
+    hgmma = sass_hgmma_counts(_build.library_path())
+    for kernel in WGMMA_KERNELS:
+        found = {n: c for n, c in hgmma.items() if kernel in n}
+        check(len(found) == 2, f"{kernel}: want its d 64 and d 128 "
+              f"instances in the SASS, found {sorted(found)}")
+        for n, c in sorted(found.items()):
+            print(f"  sass: {n}: {c} HGMMA instructions", flush=True)
+            check(c > 0, f"{n} has no HGMMA instruction")
+
+
 # ---------------------------------------------------------------- phase 1
+
+
+def _ragged_cases(dts):
+    """(b, sq, sk, d, causal, dt) cases beyond the serving and training
+    shapes: lengths that are not multiples of the tiles, and d 64."""
+    return [(b, sq, sk, d, c, dt) for dt in dts
+            for b, sq, sk, d in ((1, 100, 100, 128), (1, 1000, 1000, 128),
+                                 (2, 128, 300, 128), (2, 512, 512, 64),
+                                 (1, 128, 300, 64), (1, 1000, 1000, 64))
+            for c in (True, False)]
 
 
 def flash_phase(dev) -> dict:
     from ray_tpu_torch.ops.attention import flash_forward, flash_forward_plain
 
-    H, KVH, D = 32, 8, 128
+    H, KVH = 32, 8
     g = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
-    cases = [(b, s, s, c, dt) for dt in (torch.float32, torch.bfloat16)
+    dts = (torch.float32, torch.bfloat16)
+    cases = [(b, s, s, 128, c, dt) for dt in dts
              for b in (1, 8) for s in (128, 512) for c in (True, False)]
-    cases += [(b, sq, sk, c, dt) for dt in (torch.float32, torch.bfloat16)
+    cases += [(b, sq, sk, 128, c, dt) for dt in dts
               for b, sq, sk, c in ((2, 128, 512, True), (1, 2048, 2048, True),
                                    (1, 2048, 2048, False))]
-    for b, sq, sk, causal, dt in cases:
+    cases += _ragged_cases(dts)
+    n_bf16 = sum(dt == torch.bfloat16 for *_, dt in cases)
+    before = counters()
+    for b, sq, sk, D, causal, dt in cases:
         q = torch.randn(b, sq, H, D, generator=g, device=dev).to(dt)
         k = torch.randn(b, sk, KVH, D, generator=g, device=dev).to(dt)
         v = torch.randn(b, sk, KVH, D, generator=g, device=dev).to(dt)
@@ -163,15 +253,19 @@ def flash_phase(dev) -> dict:
         tol = (1e-4, 0.0) if dt == torch.float32 else (2e-2, 2e-2)
         ok_o, err_o = close(o, o_ref, *tol)
         ok_l, err_l = close(lse, lse_ref, *tol)
-        print(f"  flash b={b} sq={sq} sk={sk} causal={causal} "
+        print(f"  flash b={b} sq={sq} sk={sk} d={D} causal={causal} "
               f"{str(dt)[6:]}: max|dO|={err_o:.3e} max|dlse|={err_l:.3e}",
               flush=True)
         check(ok_o and ok_l, f"flash kernel disagrees with its plain "
-              f"version (b={b} sq={sq} sk={sk} causal={causal} {dt})")
+              f"version (b={b} sq={sq} sk={sk} d={D} causal={causal} {dt})")
         worst = max(worst, err_o, err_l)
+    sm90 = counters()["fwd_sm90"] - before["fwd_sm90"]
+    check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 flash forward launches "
+          f"took the wgmma kernel")
 
     # timing at the dense engine's largest prefill: 8 prompts in the
     # 512 bucket, causal, bf16
+    D = 128
     b, s, dt = 8, 512, torch.bfloat16
     q = torch.randn(b, s, H, D, generator=g, device=dev).to(dt)
     k = torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
@@ -222,7 +316,7 @@ def flash_phase(dev) -> dict:
           f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms, "
           f"bound {t_bnd:.4f} ms ({t_by})", flush=True)
     return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+            "source": "ray_tpu_torch/csrc/flash_fwd_sm90.cu",
             "replaces": "ray_tpu/ops/attention.py:78",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
@@ -245,11 +339,13 @@ def flash_bwd_phase(dev) -> list:
         return q, k, v, o.to(dt).contiguous(), lse, do
 
     worst = {"dq": 0.0, "dkv": 0.0}
-    cases = [(b, s, s, 128, c, dt) for dt in (torch.float32, torch.bfloat16)
+    dts = (torch.float32, torch.bfloat16)
+    cases = [(b, s, s, 128, c, dt) for dt in dts
              for b in (1, 4) for s in (128, 512, 2048) for c in (True, False)]
-    cases += [(b, sq, sk, d, c, dt) for dt in (torch.float32, torch.bfloat16)
-              for b, sq, sk, d, c in ((4, 128, 512, 128, True),
-                                      (2, 512, 512, 64, True))]
+    cases += [(4, 128, 512, 128, True, dt) for dt in dts]
+    cases += _ragged_cases(dts)
+    n_bf16 = sum(dt == torch.bfloat16 for *_, dt in cases)
+    before = counters()
     for b, sq, sk, D, causal, dt in cases:
         q, k, v, o, lse, do = inputs(b, sq, sk, D, causal, dt)
         got = flash_backward(q, k, v, o, lse, do, causal)
@@ -269,12 +365,15 @@ def flash_bwd_phase(dev) -> list:
         worst["dq"] = max(worst["dq"], res[0][1])
         worst["dkv"] = max(worst["dkv"], res[1][1], res[2][1])
         del q, k, v, o, lse, do, got, want
+    sm90 = counters()["dkv_sm90"] - before["dkv_sm90"]
+    check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 dK/dV launches took "
+          f"the wgmma kernel")
 
     # timing at the training shape: b 4, s 2048, causal, bf16
     b, s, D, dt = 4, 2048, 128, torch.bfloat16
     q, k, v, o, lse, do = inputs(b, s, s, D, True, dt)
     ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
-                   ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+                   ("flash_bwd_dq_kernel", "flash_bwd_dkv_sm90_kernel"))
     plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
                                                     True), iters=3)
     G = H // KVH
@@ -292,18 +391,19 @@ def flash_bwd_phase(dev) -> list:
     pairs = s * (s + 1) // 2                        # visible (q, k) pairs
     ins = (2 * b * s * H * D + 2 * b * s * KVH * D) * 2 + 2 * b * H * s * 4
     rows = []
-    for name, key, flops, outs, src_line in (
+    for name, key, flops, outs, src_line, src in (
             ("flash_attention_bwd_dq", "flash_bwd_dq_kernel",
-             6.0 * b * H * pairs * D, b * s * H * D * 2, 207),
-            ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel",
-             8.0 * b * H * pairs * D, 2 * b * s * KVH * D * 2, 253)):
+             6.0 * b * H * pairs * D, b * s * H * D * 2, 207,
+             "ray_tpu_torch/csrc/flash_bwd.cu"),
+            ("flash_attention_bwd_dkv", "flash_bwd_dkv_sm90_kernel",
+             8.0 * b * H * pairs * D, 2 * b * s * KVH * D * 2, 253,
+             "ray_tpu_torch/csrc/flash_bwd_dkv_sm90.cu")):
         bnd, by = bound_ms(ins + outs, flops, dt)
         print(f"  {name} timing b={b} s={s} causal bf16: kernel "
               f"{ks[key]:.4f} ms, bound {bnd:.4f} ms ({by}); plain "
               f"dq+dk+dv {plain_ms:.4f} ms, sdpa backward dq+dk+dv "
               f"{lib_ms:.4f} ms", flush=True)
-        rows.append({"name": name, "route": "cuda",
-                     "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+        rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": f"ray_tpu/ops/attention.py:{src_line}",
                      "max_abs_err": worst[name.rsplit("_", 1)[1]],
                      "ms": ks[key], "plain_ms": plain_ms, "bound_ms": bnd,
@@ -436,19 +536,25 @@ def counters_reset():
     from ray_tpu_torch.ops.attention import flash_backward, flash_forward
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
-    flash_forward.launches = 0
+    flash_forward.launches = flash_forward.sm90_launches = 0
     paged_attention.launches = 0
     flash_backward.dq_launches = 0
-    flash_backward.dkv_launches = 0
+    flash_backward.dkv_launches = flash_backward.dkv_sm90_launches = 0
 
 
-def counters():
-    """(flash forward, paged, dQ, dK/dV) launches since the last reset."""
+def counters() -> dict:
+    """Kernel launches since the last reset: the flash forward (all
+    routes, and the bf16 wgmma route), paged, dQ, dK/dV (all routes, and
+    the wgmma route)."""
     from ray_tpu_torch.ops.attention import flash_backward, flash_forward
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
-    return (flash_forward.launches, paged_attention.launches,
-            flash_backward.dq_launches, flash_backward.dkv_launches)
+    return {"fwd": flash_forward.launches,
+            "fwd_sm90": flash_forward.sm90_launches,
+            "paged": paged_attention.launches,
+            "dq": flash_backward.dq_launches,
+            "dkv": flash_backward.dkv_launches,
+            "dkv_sm90": flash_backward.dkv_sm90_launches}
 
 
 def fp32_phase(dev) -> None:
@@ -471,13 +577,15 @@ def fp32_phase(dev) -> None:
     dense = LLMEngine(**kw)
     got_d = {r: v["tokens"] for r, v in drain(dense, reqs, 120).items()}
     stop(dense)
-    fl = counters()[0]
+    fl = counters()["fwd"]
     check(fl > 0, "fp32 dense engine never launched the flash kernel")
+    check(counters()["fwd_sm90"] == 0,
+          "the fp32 engine took the bf16 wgmma kernel")
     counters_reset()
     paged = PagedLLMEngine(page_size=64, **kw)
     got_p = {r: v["tokens"] for r, v in drain(paged, reqs, 120).items()}
     stop(paged)
-    pa2 = counters()[1]
+    pa2 = counters()["paged"]
     check(pa2 > 0, "fp32 paged engine never launched the paged kernel")
     print(f"  fp32 2-layer: dense flash launches {fl}, paged launches "
           f"{pa2}; transcripts identical: {got_d == got_p}", flush=True)
@@ -532,10 +640,12 @@ def grad_phase(dev) -> None:
 
     counters_reset()
     l_flash, g_flash = loss_and_grads(cfg)
-    _, _, dq, dkv = counters()
-    check(dq == dkv == cfg.num_layers,
-          f"flash gradients took {dq} dQ and {dkv} dK/dV launches, want "
-          f"{cfg.num_layers} each")
+    n = counters()
+    check(n["dq"] == n["dkv"] == cfg.num_layers,
+          f"flash gradients took {n['dq']} dQ and {n['dkv']} dK/dV "
+          f"launches, want {cfg.num_layers} each")
+    check(n["fwd_sm90"] == n["dkv_sm90"] == 0,
+          "fp32 gradients took the bf16 wgmma kernels")
     runs = {"reference attention": replace(cfg, attn_impl="reference"),
             "no remat": replace(cfg, remat=False)}
     for what, c in runs.items():
@@ -580,7 +690,8 @@ def train_phase(dev) -> dict:
         losses.append(loss.item())
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    fwd, _, dq, dkv = counters()
+    runs = counters()
+    fwd, dq, dkv = runs["fwd"], runs["dq"], runs["dkv"]
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(walls[1:])
     tok = b * s
@@ -592,19 +703,23 @@ def train_phase(dev) -> dict:
           f"{walls[0] * 1e3:.1f} ms), {tok / step_s:.1f} tokens/s, MFU "
           f"{flops / step_s / PEAK_FLOPS[torch.bfloat16]:.4f} of 989 "
           f"TFLOP/s, peak memory {peak / 2**30:.2f} GiB", flush=True)
-    print(f"  training launches: flash forward {fwd}, dQ {dq}, dK/dV {dkv}",
-          flush=True)
+    print(f"  training launches: flash forward {fwd} (wgmma route "
+          f"{runs['fwd_sm90']}), dQ {dq}, dK/dV {dkv} (wgmma route "
+          f"{runs['dkv_sm90']})", flush=True)
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(fwd == 2 * L * steps, f"flash forward launched {fwd} times, want "
           f"{2 * L * steps} (twice a layer a step under remat)")
     check(dq == dkv == L * steps, f"dQ/dK/dV launched {dq}/{dkv} times, "
           f"want {L * steps} each")
+    check(runs["fwd_sm90"] == fwd and runs["dkv_sm90"] == dkv,
+          f"bf16 training took the wgmma kernels for {runs['fwd_sm90']} of "
+          f"{fwd} forward and {runs['dkv_sm90']} of {dkv} dK/dV launches")
     del params, opt, loss
     gc.collect()
     torch.cuda.empty_cache()
-    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": dq,
-            "flash_attention_bwd_dkv": dkv}
+    return {"flash_attention_fwd": runs["fwd_sm90"], "flash_attention_bwd_dq": dq,
+            "flash_attention_bwd_dkv": runs["dkv_sm90"]}
 
 
 def serve_8b_phase(dev) -> dict:
@@ -645,7 +760,11 @@ def serve_8b_phase(dev) -> dict:
         wall = time.perf_counter() - t1
         st = eng.stats()
         stop(eng)
-        launches = counters()[:2]
+        n = counters()
+        launches = (n["fwd"], n["paged"])
+        check(n["fwd_sm90"] == n["fwd"],
+              f"{name}: {n['fwd_sm90']} of {n['fwd']} bf16 flash launches "
+              f"took the wgmma kernel")
         del eng
         torch.cuda.empty_cache()
         for rid, res in out.items():
@@ -686,7 +805,7 @@ def main() -> None:
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from ray_tpu_torch.ops import _build
+        import ray_tpu_torch.ops._build  # noqa: F401  (the package is here)
     except ImportError as e:
         print(f"chip_smoke: ray_tpu_torch not found beside the script: {e}",
               file=sys.stderr)
@@ -697,20 +816,9 @@ def main() -> None:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    smi = smi_line()
-    print(f"phase 0: card {smi}; torch {torch.__version__} cuda "
+    print(f"phase 0: card {smi_line()}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"  kernels built in {_build.last_build_seconds:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s): "
-          f"{_build.library_path().name}", flush=True)
-    log_path = _build.BUILD_DIR / "build.log"
-    if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            if ("registers" in line or "spill" in line
-                    or "Compiling entry" in line):
-                print("  ptxas:", line.strip(), flush=True)
+    build_phase()
 
     lens = (100, 157, 214, 271, 328, 385, 442, 500)
     ctx_main = [m + 16 for m in lens]   # mid-decode history per slot

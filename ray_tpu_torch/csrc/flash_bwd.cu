@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), fp32 or bf16 inputs: one
-// kernel for dQ and one for dK/dV.
+// Flash-attention backward for Hopper (sm_90a), the scalar kernels: dQ
+// for fp32 and bf16 inputs, dK/dV for fp32 inputs (bf16 dK/dV takes
+// flash_bwd_dkv_sm90.cu, wgmma fed by TMA).
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dq_kernel (pallas_call at
 // attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368). Same
@@ -30,8 +31,9 @@
 //   no per-query-head [b*H, sk, d] intermediates, no second reduction pass
 //   and no atomics. Both 64 x d fp32 accumulators stay in registers
 //   (256 threads: 4 key rows x d/16 columns each per accumulator).
-// Neither kernel writes a score-sized tensor to device memory. wgmma on bf16
-// tiles and TMA come later.
+// Neither kernel writes a score-sized tensor to device memory. The fp32
+// kernels stay scalar because a wgmma product on fp32 inputs is TF32, which
+// could not hold the fp32 gradients to their reference at 1e-4.
 
 #include "common.cuh"
 
@@ -402,25 +404,18 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
 
 extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv,
-                                 int dtype, int b, int sq, int sk, int H,
-                                 int KVH, int d, int causal, float scale,
-                                 void* stream) {
+                                 const void* delta, void* dk, void* dv, int b,
+                                 int sq, int sk, int H, int KVH, int d,
+                                 int causal, float scale, void* stream) {
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32 && d == 64)
+  if (d == 64)
     err = launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
                                 H, KVH, causal, scale, st);
-  else if (dtype == rtt::kFloat32 && d == 128)
+  else if (d == 128)
     err = launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
                                  H, KVH, causal, scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 64)
-    err = launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk, dv, b,
-                                        sq, sk, H, KVH, causal, scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 128)
-    err = launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk, dv, b,
-                                         sq, sk, H, KVH, causal, scale, st);
   return static_cast<int>(err);
 }

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 or bf16 inputs.
+// Flash-attention forward for Hopper (sm_90a), fp32 inputs: the scalar
+// kernel. bf16 inputs take flash_fwd_sm90.cu (wgmma fed by TMA).
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_kernel (launched by
 // _flash_forward, pallas_call at attention.py:178). Same function: blocked
@@ -20,7 +21,9 @@
 // query tile) keeps the whole online softmax (m, l, and a 64 x d fp32
 // accumulator) in registers, stages each 64-key K/V tile once in shared
 // memory for all 64 query rows, never writes the score matrix to device
-// memory, and stops at the causal bound. wgmma + TMA come later.
+// memory, and stops at the causal bound. It stays for fp32 because a wgmma
+// product on fp32 inputs is TF32, which could not hold the fp32 engines
+// and gradients to their references at 1e-4.
 
 #include "common.cuh"
 
@@ -205,25 +208,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int dtype, int b, int sq,
-                             int sk, int H, int KVH, int d, int causal,
-                             float scale, void* stream) {
+                             void* o, void* lse, int b, int sq, int sk, int H,
+                             int KVH, int d, int causal, float scale,
+                             void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || KVH <= 0 || H % KVH != 0 ||
       b * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32 && d == 64)
+  if (d == 64)
     err = launch<float, 64>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
                             scale, st);
-  else if (dtype == rtt::kFloat32 && d == 128)
+  else if (d == 128)
     err = launch<float, 128>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
                              scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 64)
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, lse, b, sq, sk, H, KVH,
-                                    causal, scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 128)
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, lse, b, sq, sk, H, KVH,
-                                     causal, scale, st);
   return static_cast<int>(err);
 }

@@ -3,8 +3,10 @@
 ``params_from_numpy`` takes the reference's parameter pytree as nested
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``)
 and returns the port's params: the same keys and shapes as tensors on
-``device``. Int8 weight-only leaves ``{"q": int8, "s": float}`` keep
-their structure; ``q`` stays int8. ``params_to_numpy`` is the inverse.
+``device`` (by default the CUDA card, as every entry point of the port;
+pass ``"cpu"`` for the host). Int8 weight-only leaves ``{"q": int8, "s":
+float}`` keep their structure; ``q`` stays int8. ``params_to_numpy`` is
+the inverse.
 """
 
 from __future__ import annotations
@@ -14,12 +16,16 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch.models.llama import resolve_device
 
-def params_from_numpy(tree: Dict[str, Any], device="cpu",
+
+def params_from_numpy(tree: Dict[str, Any], device=None,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Nested dicts of numpy arrays -> the same nesting of tensors.
-    ``dtype`` (if given) casts floating leaves; integer leaves keep
-    theirs."""
+    """Nested dicts of numpy arrays -> the same nesting of tensors on
+    ``device`` (``None``: the card, or raise without one). ``dtype`` (if
+    given) casts floating leaves; integer leaves keep theirs."""
+    device = resolve_device(device)
+
     def conv(v):
         if isinstance(v, dict):
             return {k: conv(x) for k, x in v.items()}

@@ -44,17 +44,22 @@ last_build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points and their argument types (see csrc/*.cu); every entry
-# returns the cudaError_t of its launch
+# C entry points and their argument types (see csrc/*.cu); every kernel
+# entry returns the cudaError_t of its launch, rtt_error_string its name
 _SIGNATURES = {
     "rtt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _F, _P],
+                      _F, _P],
+    "rtt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _P],
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _F, _P],
+                          _I, _I, _I, _F, _P],
+    "rtt_flash_bwd_dkv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _F, _P],
     "rtt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _F, _P],
+    "rtt_error_string": [_I],
 }
 
 
@@ -155,7 +160,6 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.rtt_error_string.argtypes = [ctypes.c_int]
         lib.rtt_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib

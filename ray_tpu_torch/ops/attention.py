@@ -5,11 +5,19 @@ launches its CUDA kernels on CUDA tensors and runs its plain PyTorch
 version on CPU tensors. There is no other route and no fallback: a CUDA
 tensor the kernels cannot take raises.
 
-- ``flash_forward``: kernel 1 (``csrc/flash_fwd.cu``, replaces the Pallas
-  ``_flash_kernel``), returning O and the fp32 row logsumexp.
-- ``flash_backward``: kernels 3 and 4 (``csrc/flash_bwd.cu``, replace
-  ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``), recomputing
-  the probabilities from that logsumexp.
+- ``flash_forward``: kernel 1 (replaces the Pallas ``_flash_kernel``),
+  returning O and the fp32 row logsumexp.
+- ``flash_backward``: kernels 3 and 4 (replace ``_flash_bwd_dq_kernel``
+  and ``_flash_bwd_dkv_kernel``), recomputing the probabilities from that
+  logsumexp.
+
+``flash_route`` picks the kernels from the inputs' device, dtype and
+head dim: bf16 on the card takes the Hopper kernels that run wgmma on
+bf16 tiles fed by TMA (``csrc/flash_fwd_sm90.cu`` and, for dK/dV,
+``csrc/flash_bwd_dkv_sm90.cu``); fp32 on the card takes the scalar
+kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which hold fp32
+to 1e-4 where a wgmma on fp32 inputs would be TF32. dQ runs its scalar
+kernel (``csrc/flash_bwd.cu``) on both dtypes.
 
 ``flash_attention`` is the ``torch.autograd.Function`` over the two, the
 counterpart of the reference's ``custom_vjp``.
@@ -109,6 +117,28 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def flash_route(dtype: torch.dtype, head_dim: int, device) -> str:
+    """Which flash kernels take inputs of this dtype, head dim and device:
+    ``"sm90"`` (bf16 on the card, head_dim 64 or 128: the wgmma kernels),
+    ``"scalar"`` (fp32 on the card, head_dim 64 or 128), ``"plain"`` (the
+    CPU: the plain PyTorch versions, any dtype and head dim). Anything
+    else raises ``ValueError``: there is no fallback."""
+    kind = torch.device(device).type
+    if kind == "cpu":
+        return "plain"
+    if kind != "cuda":
+        raise ValueError(f"flash attention: unsupported device {device}")
+    if head_dim not in (64, 128):
+        raise ValueError(f"flash attention: head_dim {head_dim} not "
+                         "supported on the card (64 or 128)")
+    if dtype == torch.bfloat16:
+        return "sm90"
+    if dtype == torch.float32:
+        return "scalar"
+    raise ValueError(f"flash attention: dtype {dtype} not supported on the "
+                     "card (float32 or bfloat16)")
+
+
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     dtype = tensors[0].dtype
@@ -119,18 +149,16 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs of different dtypes")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: dtype {dtype} not supported "
-                         "(float32 or bfloat16)")
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, sm_scale: Optional[float] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 1's wrapper: (O [b, sq, H, d] in q's dtype, lse f32
-    [b*H, sq]). CPU tensors take ``flash_forward_plain``; CUDA tensors
-    launch ``csrc/flash_fwd.cu`` on the current stream (head_dim 64 or
-    128, float32 or bfloat16, contiguous) or raise."""
+    [b*H, sq]). The route is ``flash_route``'s: CPU tensors take
+    ``flash_forward_plain``; CUDA tensors (contiguous) launch
+    ``csrc/flash_fwd_sm90.cu`` (bf16) or ``csrc/flash_fwd.cu`` (fp32) on
+    the current stream, or raise."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape
@@ -141,31 +169,32 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % kvh:
         raise ValueError(f"flash_forward: {h} heads not a multiple of "
                          f"{kvh} kv heads")
-    if q.device.type == "cpu":
+    route = flash_route(q.dtype, d, q.device)
+    if route == "plain":
         return flash_forward_plain(q, k, v, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_forward: unsupported device {q.device}")
     _check_cuda("flash_forward", q, k, v)
-    if d not in (64, 128):
-        raise ValueError(f"flash_forward: head_dim {d} not supported "
-                         "(64 or 128)")
     from ray_tpu_torch.ops import _build
 
     lib = _build.load()
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    entry = (lib.rtt_flash_fwd_sm90 if route == "sm90"
+             else lib.rtt_flash_fwd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODES[q.dtype], b, sq, sk, h, kvh, d,
-            int(bool(causal)), float(sm_scale), stream)
-    _build.check(lib, err, "flash_forward kernel")
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), b, sq, sk, h, kvh, d, int(bool(causal)),
+                    float(sm_scale), stream)
+    _build.check(lib, err, f"flash_forward {route} kernel")
     flash_forward.launches += 1
+    if route == "sm90":
+        flash_forward.sm90_launches += 1
     return out, lse
 
 
-flash_forward.launches = 0  # kernel launches, for chip_smoke.py
+# kernel launches, for chip_smoke.py: all routes, and the bf16 wgmma route
+flash_forward.launches = 0
+flash_forward.sm90_launches = 0
 
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -208,12 +237,13 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernels 3 and 4's wrapper: (dq, dk, dv) of attention with output
     ``o`` and row logsumexp ``lse`` [b*H, sq] (``flash_forward``'s) under
-    the cotangent ``do``. CPU tensors take ``flash_backward_plain``;
-    CUDA tensors launch the dQ and the dK/dV kernel of
-    ``csrc/flash_bwd.cu`` on the current stream (head_dim 64 or 128,
-    float32 or bfloat16, contiguous) or raise. ``delta = rowsum(dO * O)``
-    is computed here with torch ops, as XLA computes it outside the
-    Pallas kernels."""
+    the cotangent ``do``. The route is ``flash_route``'s: CPU tensors take
+    ``flash_backward_plain``; CUDA tensors (contiguous) launch the scalar
+    dQ kernel of ``csrc/flash_bwd.cu`` and the dK/dV kernel of
+    ``csrc/flash_bwd_dkv_sm90.cu`` (bf16) or ``csrc/flash_bwd.cu`` (fp32)
+    on the current stream, or raise. ``delta = rowsum(dO * O)`` is
+    computed here with torch ops, as XLA computes it outside the Pallas
+    kernels."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape
@@ -228,18 +258,14 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % kvh:
         raise ValueError(f"flash_backward: {h} heads not a multiple of "
                          f"{kvh} kv heads")
-    if q.device.type == "cpu":
+    route = flash_route(q.dtype, d, q.device)
+    if route == "plain":
         return flash_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_backward: unsupported device {q.device}")
     _check_cuda("flash_backward", q, k, v, o, do)
     if (lse.device != q.device or lse.dtype != torch.float32
             or not lse.is_contiguous()):
         raise ValueError("flash_backward: lse must be a contiguous float32 "
                          "tensor on q's device")
-    if d not in (64, 128):
-        raise ValueError(f"flash_backward: head_dim {d} not supported "
-                         "(64 or 128)")
     from ray_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -248,26 +274,33 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    args = (_DTYPE_CODES[q.dtype], b, sq, sk, h, kvh, d, int(bool(causal)),
-            float(sm_scale))
+    args = (b, sq, sk, h, kvh, d, int(bool(causal)), float(sm_scale))
+    dkv_entry = (lib.rtt_flash_bwd_dkv_sm90 if route == "sm90"
+                 else lib.rtt_flash_bwd_dkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.rtt_flash_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args, stream)
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            _DTYPE_CODES[q.dtype], *args, stream)
         _build.check(lib, err, "flash_backward dQ kernel")
         flash_backward.dq_launches += 1
-        err = lib.rtt_flash_bwd_dkv(
+        err = dkv_entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *args, stream)
-        _build.check(lib, err, "flash_backward dK/dV kernel")
+        _build.check(lib, err, f"flash_backward {route} dK/dV kernel")
         flash_backward.dkv_launches += 1
+        if route == "sm90":
+            flash_backward.dkv_sm90_launches += 1
     return dq, dk, dv
 
 
-flash_backward.dq_launches = 0   # kernel launches, for chip_smoke.py
+# kernel launches, for chip_smoke.py: all routes, and dK/dV's bf16 wgmma
+# route
+flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
+flash_backward.dkv_sm90_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

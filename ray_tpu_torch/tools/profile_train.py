@@ -34,9 +34,11 @@ from ray_tpu_torch.models import llama
 
 LAYERS, BATCH, SEQ = 8, 4, 2048
 
-_KERNELS = {"flash forward (kernel 1)": "flash_fwd_kernel",
+# the bf16 step's attention kernels: the wgmma forward and dK/dV, and the
+# scalar dQ
+_KERNELS = {"flash forward (kernel 1)": "flash_fwd_sm90_kernel",
             "flash dQ (kernel 3)": "flash_bwd_dq_kernel",
-            "flash dK/dV (kernel 4)": "flash_bwd_dkv_kernel"}
+            "flash dK/dV (kernel 4)": "flash_bwd_dkv_sm90_kernel"}
 
 
 def _kernel_times(prof) -> dict:
