@@ -7,22 +7,26 @@ Phases, each printing what it finds; any failure exits non-zero:
 
 0. the card's name and power limit; build the CUDA kernels from
    ray_tpu_torch/csrc (timed), with ptxas's registers and spills; the
-   two wgmma kernels (the bf16 flash forward and dK/dV) must contain
-   HGMMA instructions in the built library's SASS (cuobjdump).
+   three wgmma kernels (the bf16 flash forward, dQ and dK/dV) must
+   contain HGMMA instructions in the built library's SASS (cuobjdump).
 1. each kernel against its plain PyTorch version on the card: the flash
    forward at the serving shapes, s 2048 and the training shape (b 4,
    s 2048, bf16), the flash backward (dQ and dK/dV) at b 1/4, s
    128/512/2048, causal and not, sk 512 > sq 128 and d 64, both with
    ragged lengths (s 100, s 1000, sq 128 / sk 300) and d 64 in bf16, the
-   paged kernel at the decode shape. fp32 (the scalar kernels) at atol
+   paged kernel at the decode shape and on a 64-page table whose
+   contexts land on the split boundaries of its split-K grid, with ctx
+   0 exact, out-of-pool ids below ctx read as clamped, and two calls on
+   the same inputs equal bit for bit. fp32 (the scalar kernels) at atol
    1e-4 (the backward also rtol 1e-4: dK sums up to sk*G products an
-   element), bf16 (the wgmma kernels; dQ stays scalar) at atol/rtol 2e-2
-   against the plain version in fp32 on the same bf16 inputs; every bf16
-   forward and dK/dV launch must take the wgmma route. Times of each
+   element), bf16 (the wgmma kernels) at atol/rtol 2e-2 against the
+   plain version in fp32 on the same bf16 inputs; every bf16 forward,
+   dQ and dK/dV launch must take the wgmma route. Times of each
    kernel, its plain version and one PyTorch call computing the same
    function (scaled_dot_product_attention, its backward for the
    dQ/dK/dV pair), with the least time the card could take. The backward
-   is timed at the training shape.
+   is timed at the training shape, the paged wrapper (its split and
+   merge launches) at the decode shape.
 2. fp32, full Llama-3-8B width, 2 layers: the dense engine (flash
    prefill) and the paged engine (paged decode) give identical greedy
    transcripts, which agree with a cache-free forward pass through the
@@ -41,7 +45,7 @@ Phases, each printing what it finds; any failure exits non-zero:
    2048), 5 AdamW steps on one batch of random tokens; the loss is
    finite and falls, the launch counters show the
    forward (twice under remat) and both backward kernels ran on every
-   layer of every step, the forward and dK/dV on the wgmma route; step
+   layer of every step, all three on the wgmma route; step
    time, tokens/s, MFU, peak memory.
 
 The second line from the end is the kernel table as JSON (launches of
@@ -90,9 +94,12 @@ def smi_line() -> str:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one ``fn`` call by CUDA events, each call
-    after a 256 MB write that evicts the 50 MB L2: the serving path
-    finds its inputs cold, behind other layers' weights."""
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    after a 512 MB write that evicts the 50 MB L2: the serving path
+    finds its inputs cold, behind other layers' weights. The write keeps
+    the card busy for longer than the host takes to enqueue a call, so
+    the events time the call's launches back to back on the card, not
+    the host's Python between them."""
+    flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
@@ -112,7 +119,7 @@ def kernel_ms(fn, names, iters: int = 10) -> dict:
     """Mean device time of each named kernel over ``iters`` calls of
     ``fn`` (which may launch several kernels), from ``torch.profiler``,
     each call after the same L2-evicting write as ``time_ms``."""
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    flush = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -148,7 +155,8 @@ def close(got: torch.Tensor, want: torch.Tensor, atol: float,
 # ---------------------------------------------------------------- phase 0
 
 # the wgmma kernels: their SASS must hold HGMMA (warpgroup MMA) instructions
-WGMMA_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+WGMMA_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                 "flash_bwd_dkv_sm90_kernel")
 
 
 def ptxas_usage(log: str) -> dict:
@@ -365,15 +373,16 @@ def flash_bwd_phase(dev) -> list:
         worst["dq"] = max(worst["dq"], res[0][1])
         worst["dkv"] = max(worst["dkv"], res[1][1], res[2][1])
         del q, k, v, o, lse, do, got, want
-    sm90 = counters()["dkv_sm90"] - before["dkv_sm90"]
-    check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 dK/dV launches took "
-          f"the wgmma kernel")
+    for key, what in (("dq_sm90", "dQ"), ("dkv_sm90", "dK/dV")):
+        sm90 = counters()[key] - before[key]
+        check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 {what} launches "
+              f"took the wgmma kernel")
 
     # timing at the training shape: b 4, s 2048, causal, bf16
     b, s, D, dt = 4, 2048, 128, torch.bfloat16
     q, k, v, o, lse, do = inputs(b, s, s, D, True, dt)
     ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
-                   ("flash_bwd_dq_kernel", "flash_bwd_dkv_sm90_kernel"))
+                   ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"))
     plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
                                                     True), iters=3)
     G = H // KVH
@@ -392,9 +401,9 @@ def flash_bwd_phase(dev) -> list:
     ins = (2 * b * s * H * D + 2 * b * s * KVH * D) * 2 + 2 * b * H * s * 4
     rows = []
     for name, key, flops, outs, src_line, src in (
-            ("flash_attention_bwd_dq", "flash_bwd_dq_kernel",
+            ("flash_attention_bwd_dq", "flash_bwd_dq_sm90_kernel",
              6.0 * b * H * pairs * D, b * s * H * D * 2, 207,
-             "ray_tpu_torch/csrc/flash_bwd.cu"),
+             "ray_tpu_torch/csrc/flash_bwd_dq_sm90.cu"),
             ("flash_attention_bwd_dkv", "flash_bwd_dkv_sm90_kernel",
              8.0 * b * H * pairs * D, 2 * b * s * KVH * D * 2, 253,
              "ray_tpu_torch/csrc/flash_bwd_dkv_sm90.cu")):
@@ -413,14 +422,15 @@ def flash_bwd_phase(dev) -> list:
     fused, fused_by = bound_ms(ins + b * s * H * D * 2 + 2 * b * s * KVH * D
                                * 2, 10.0 * b * H * pairs * D, dt)
     split = rows[0]["bound_ms"] + rows[1]["bound_ms"]
+    pair = rows[0]["ms"] + rows[1]["ms"]
     print(f"  flash backward floor b={b} s={s}: {fused:.4f} ms ({fused_by}) "
-          f"for one fused kernel, {split:.4f} ms for the dQ and dK/dV pair",
-          flush=True)
+          f"for one fused kernel, {split:.4f} ms for the dQ and dK/dV pair; "
+          f"the pair measured {pair:.4f} ms", flush=True)
     return rows
 
 
-def _paged_inputs(dev, dt, g, ctx, S=8, KVH=8, G=4, hd=128, page=64,
-                  maxp=16):
+def _paged_inputs(dev, dt, g, ctx, KVH=8, G=4, hd=128, page=64, maxp=16):
+    S = len(ctx)
     P = S * maxp + 8
     q = torch.randn(S, KVH, G, hd, generator=g, device=dev).to(dt)
     kp = torch.randn(P, KVH, page, hd, generator=g, device=dev).to(dt)
@@ -437,54 +447,89 @@ def _paged_inputs(dev, dt, g, ctx, S=8, KVH=8, G=4, hd=128, page=64,
     return (q, kp, vp, bt.to(dev), bt_plain.to(dev), ctx_t.to(dev))
 
 
+def _paged_check(what, got, want, ctx, tol) -> float:
+    """Holds the kernel's (acc, m, l) to the plain version's: each of the
+    three, the normalised output of live slots, and the exact ctx-0
+    triple. Returns max |d out|."""
+    acc, m, l = got
+    ra, rm, rl = want
+    oks = [close(acc, ra, *tol), close(m, rm, *tol), close(l, rl, *tol)]
+    live = ctx > 0
+    ok_n, err = close(acc[live] / l[live][..., None],
+                      ra[live] / rl[live][..., None], *tol)
+    empty_ok = (bool((acc[~live] == 0).all()) and
+                bool((l[~live] == 0).all()) and
+                bool((m[~live] == -1e30).all()))
+    print(f"  paged {what}: max|d out|={err:.3e} max|d acc,m,l|="
+          f"{max(e for _, e in oks):.3e} ctx0 exact={empty_ok}", flush=True)
+    check(all(o for o, _ in oks) and ok_n and empty_ok,
+          f"paged kernel disagrees with its plain version ({what})")
+    return err
+
+
 def paged_phase(dev, ctx_main) -> dict:
     from ray_tpu_torch.ops.paged_attention import (paged_attention,
-                                                   paged_attention_reference)
+                                                   paged_attention_reference,
+                                                   split_pages)
 
     g = torch.Generator(device=dev).manual_seed(3)
     worst = 0.0
     ctx_check = [0, 1, 63, 64, 65, 300, 517, 1024]   # 1024 = full MAXP
     for dt in (torch.float32, torch.bfloat16):
-        q, kp, vp, bt, bt_plain, ctx = _paged_inputs(dev, dt, g, ctx_check)
-        acc, m, l = paged_attention(q, kp, vp, bt, ctx)
-        ra, rm, rl = paged_attention_reference(q.float(), kp.float(),
-                                               vp.float(), bt_plain, ctx)
-        torch.cuda.synchronize()
         tol = (1e-4, 1e-5) if dt == torch.float32 else (2e-2, 2e-2)
-        oks = [close(acc, ra, *tol), close(m, rm, *tol), close(l, rl, *tol)]
-        live = ctx > 0
-        out = acc[live] / l[live][..., None]
-        ref = ra[live] / rl[live][..., None]
-        ok_n, err = close(out, ref, *tol)
-        empty_ok = (bool((acc[~live] == 0).all()) and
-                    bool((l[~live] == 0).all()) and
-                    bool((m[~live] == -1e30).all()))
-        print(f"  paged ctx={ctx_check} {str(dt)[6:]}: max|d out|="
-              f"{err:.3e} max|d acc,m,l|="
-              f"{max(e for _, e in oks):.3e} ctx0 exact={empty_ok}",
-              flush=True)
-        check(all(o for o, _ in oks) and ok_n and empty_ok,
-              f"paged kernel disagrees with its plain version ({dt})")
-        worst = max(worst, err)
+        name = str(dt)[6:]
+        q, kp, vp, bt, bt_plain, ctx = _paged_inputs(dev, dt, g, ctx_check)
+        got = paged_attention(q, kp, vp, bt, ctx)
+        want = paged_attention_reference(q.float(), kp.float(), vp.float(),
+                                         bt_plain, ctx)
+        torch.cuda.synchronize()
+        worst = max(worst, _paged_check(f"ctx={ctx_check} {name}", got,
+                                        want, ctx, tol))
+        # two calls on the same inputs agree bit for bit: the splits merge
+        # in order, with no float atomics
+        again = paged_attention(q, kp, vp, bt, ctx)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"  paged {name}: two calls bit-identical: {same}", flush=True)
+        check(same, f"two paged calls on the same inputs differ ({dt})")
         # ids outside the pool below ctx are read as clamp_page_ids reads
         # them (negative from the end, the rest clamped), by both versions
         P = kp.shape[0]
         bad = bt.clone()
         bad[1, 0], bad[5, 1], bad[6, 2], bad[7, 15] = -1, P + 7, -P - 5, 2 ** 30
-        acc, m, l = paged_attention(q, kp, vp, bad, ctx)
-        ra, rm, rl = paged_attention_reference(q.float(), kp.float(),
-                                               vp.float(), bad, ctx)
+        got = paged_attention(q, kp, vp, bad, ctx)
+        want = paged_attention_reference(q.float(), kp.float(), vp.float(),
+                                         bad, ctx)
         torch.cuda.synchronize()
-        live = ctx > 0
-        ok_c, err_c = close(acc[live] / l[live][..., None],
-                            ra[live] / rl[live][..., None], *tol)
-        print(f"  paged out-of-pool ids below ctx {str(dt)[6:]}: "
-              f"max|d out|={err_c:.3e}", flush=True)
-        check(ok_c, f"paged kernel reads out-of-pool ids unlike its plain "
-              f"version ({dt})")
-        worst = max(worst, err_c)
+        worst = max(worst, _paged_check(f"out-of-pool ids below ctx {name}",
+                                        got, want, ctx, tol))
+        # a 64-page table: contexts on the split boundaries of the grid
+        maxp, page = 64, 64
+        pps, n_split = split_pages(5, 8, maxp)
+        run = pps * page                       # tokens of one split
+        ctx_split = [1, run - 1, run, run + 1, maxp * page]
+        q, kp, vp, bt, bt_plain, ctx = _paged_inputs(dev, dt, g, ctx_split,
+                                                     maxp=maxp)
+        got = paged_attention(q, kp, vp, bt, ctx)
+        want = paged_attention_reference(q.float(), kp.float(), vp.float(),
+                                         bt_plain, ctx)
+        torch.cuda.synchronize()
+        worst = max(worst, _paged_check(
+            f"MAXP {maxp}, {pps} pages x {n_split} splits, ctx={ctx_split} "
+            f"{name}", got, want, ctx, tol))
+        del q, kp, vp, got, want, again
+        # the other instances the kernel is built for: G 1, 2 and 8, hd 64
+        for kvh, grp, hd in ((2, 1, 128), (8, 2, 64), (4, 8, 128)):
+            q, kp, vp, bt, bt_plain, ctx = _paged_inputs(
+                dev, dt, g, ctx_check, KVH=kvh, G=grp, hd=hd)
+            got = paged_attention(q, kp, vp, bt, ctx)
+            want = paged_attention_reference(q.float(), kp.float(),
+                                             vp.float(), bt_plain, ctx)
+            torch.cuda.synchronize()
+            worst = max(worst, _paged_check(
+                f"KVH {kvh} G {grp} hd {hd} {name}", got, want, ctx, tol))
 
-    # timing at the paged engine's decode shape, bf16
+    # timing at the paged engine's decode shape, bf16: the wrapper's two
+    # launches (split and merge) together
     dt = torch.bfloat16
     q, kp, vp, bt, bt_plain, ctx = _paged_inputs(dev, dt, g, ctx_main)
     ms = time_ms(lambda: paged_attention(q, kp, vp, bt, ctx), iters=50)
@@ -498,8 +543,10 @@ def paged_phase(dev, ctx_main) -> dict:
               + S * KVH * G * (hd + 2) * 4)
     flops = 4.0 * tok * KVH * G * hd
     bnd, by = bound_ms(nbytes, flops, dt)
-    print(f"  paged timing S={S} ctx={ctx_main} bf16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    pps, n_split = split_pages(S, KVH, bt.shape[1])
+    print(f"  paged timing S={S} ctx={ctx_main} bf16 ({pps} page(s) x "
+          f"{n_split} splits): split + merge {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
     return {"name": "paged_attention", "route": "cuda",
             "source": "ray_tpu_torch/csrc/paged_attention.cu",
             "replaces": "ray_tpu/ops/paged_attention.py:83",
@@ -537,22 +584,24 @@ def counters_reset():
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
     flash_forward.launches = flash_forward.sm90_launches = 0
-    paged_attention.launches = 0
-    flash_backward.dq_launches = 0
+    paged_attention.launches = paged_attention.merge_launches = 0
+    flash_backward.dq_launches = flash_backward.dq_sm90_launches = 0
     flash_backward.dkv_launches = flash_backward.dkv_sm90_launches = 0
 
 
 def counters() -> dict:
     """Kernel launches since the last reset: the flash forward (all
-    routes, and the bf16 wgmma route), paged, dQ, dK/dV (all routes, and
-    the wgmma route)."""
+    routes, and the bf16 wgmma route), paged (split and merge passes), dQ
+    and dK/dV (all routes, and the wgmma route)."""
     from ray_tpu_torch.ops.attention import flash_backward, flash_forward
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
     return {"fwd": flash_forward.launches,
             "fwd_sm90": flash_forward.sm90_launches,
             "paged": paged_attention.launches,
+            "paged_merge": paged_attention.merge_launches,
             "dq": flash_backward.dq_launches,
+            "dq_sm90": flash_backward.dq_sm90_launches,
             "dkv": flash_backward.dkv_launches,
             "dkv_sm90": flash_backward.dkv_sm90_launches}
 
@@ -587,6 +636,8 @@ def fp32_phase(dev) -> None:
     stop(paged)
     pa2 = counters()["paged"]
     check(pa2 > 0, "fp32 paged engine never launched the paged kernel")
+    check(counters()["paged_merge"] == pa2,
+          "fp32 paged engine: split and merge launches differ")
     print(f"  fp32 2-layer: dense flash launches {fl}, paged launches "
           f"{pa2}; transcripts identical: {got_d == got_p}", flush=True)
     check(got_d == got_p, f"fp32 dense and paged transcripts differ:\n"
@@ -644,7 +695,7 @@ def grad_phase(dev) -> None:
     check(n["dq"] == n["dkv"] == cfg.num_layers,
           f"flash gradients took {n['dq']} dQ and {n['dkv']} dK/dV "
           f"launches, want {cfg.num_layers} each")
-    check(n["fwd_sm90"] == n["dkv_sm90"] == 0,
+    check(n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == 0,
           "fp32 gradients took the bf16 wgmma kernels")
     runs = {"reference attention": replace(cfg, attn_impl="reference"),
             "no remat": replace(cfg, remat=False)}
@@ -704,21 +755,24 @@ def train_phase(dev) -> dict:
           f"{flops / step_s / PEAK_FLOPS[torch.bfloat16]:.4f} of 989 "
           f"TFLOP/s, peak memory {peak / 2**30:.2f} GiB", flush=True)
     print(f"  training launches: flash forward {fwd} (wgmma route "
-          f"{runs['fwd_sm90']}), dQ {dq}, dK/dV {dkv} (wgmma route "
-          f"{runs['dkv_sm90']})", flush=True)
+          f"{runs['fwd_sm90']}), dQ {dq} (wgmma route {runs['dq_sm90']}), "
+          f"dK/dV {dkv} (wgmma route {runs['dkv_sm90']})", flush=True)
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(fwd == 2 * L * steps, f"flash forward launched {fwd} times, want "
           f"{2 * L * steps} (twice a layer a step under remat)")
     check(dq == dkv == L * steps, f"dQ/dK/dV launched {dq}/{dkv} times, "
           f"want {L * steps} each")
-    check(runs["fwd_sm90"] == fwd and runs["dkv_sm90"] == dkv,
+    check(runs["fwd_sm90"] == fwd and runs["dq_sm90"] == dq
+          and runs["dkv_sm90"] == dkv,
           f"bf16 training took the wgmma kernels for {runs['fwd_sm90']} of "
-          f"{fwd} forward and {runs['dkv_sm90']} of {dkv} dK/dV launches")
+          f"{fwd} forward, {runs['dq_sm90']} of {dq} dQ and "
+          f"{runs['dkv_sm90']} of {dkv} dK/dV launches")
     del params, opt, loss
     gc.collect()
     torch.cuda.empty_cache()
-    return {"flash_attention_fwd": runs["fwd_sm90"], "flash_attention_bwd_dq": dq,
+    return {"flash_attention_fwd": runs["fwd_sm90"],
+            "flash_attention_bwd_dq": runs["dq_sm90"],
             "flash_attention_bwd_dkv": runs["dkv_sm90"]}
 
 
@@ -762,6 +816,9 @@ def serve_8b_phase(dev) -> dict:
         stop(eng)
         n = counters()
         launches = (n["fwd"], n["paged"])
+        check(n["paged_merge"] == n["paged"],
+              f"{name}: {n['paged']} paged split launches but "
+              f"{n['paged_merge']} merges")
         check(n["fwd_sm90"] == n["fwd"],
               f"{name}: {n['fwd_sm90']} of {n['fwd']} bf16 flash launches "
               f"took the wgmma kernel")

@@ -1,27 +1,27 @@
-// Flash-attention backward for Hopper (sm_90a), the scalar kernels: dQ
-// for fp32 and bf16 inputs, dK/dV for fp32 inputs (bf16 dK/dV takes
-// flash_bwd_dkv_sm90.cu, wgmma fed by TMA).
+// Flash-attention backward for Hopper (sm_90a), the scalar kernels for
+// fp32 inputs: dQ and dK/dV. bf16 inputs take the wgmma kernels fed by
+// TMA (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu).
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dq_kernel (pallas_call at
-// attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368). Same
-// function: both recompute P = exp(S*scale - lse) tile by tile from the
-// forward's fp32 row logsumexp, with masked scores at -1e30 under the causal
-// offset sk - sq, then dP = dO V^T and dS = P * (dP - delta), where
-// delta = rowsum(dO * O) comes from the wrapper (XLA computes it outside the
-// Pallas kernels too). dQ = scale * dS K; dK = scale * dS^T Q; dV = P^T dO.
+// attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368), on
+// the fp32 path. Same function: both recompute P = exp(S*scale - lse) tile
+// by tile from the forward's fp32 row logsumexp, with masked scores at
+// -1e30 under the causal offset sk - sq, then dP = dO V^T and dS = P *
+// (dP - delta), where delta = rowsum(dO * O) comes from the wrapper (XLA
+// computes it outside the Pallas kernels too). dQ = scale * dS K; dK =
+// scale * dS^T Q; dV = P^T dO.
 //
 // Layout: q, o, dO [b, sq, H, d]; k, v [b, sk, KVH, d] (the port's public
 // layout, read in place through row strides; query head h reads kv head
 // h / (H / KVH)); lse, delta [b*H, sq] fp32; dq [b, sq, H, d]; dk, dv
-// [b, sk, KVH, d], each in its input's dtype.
+// [b, sk, KVH, d], all fp32.
 //
-// What bounds it: at the training shape (b 4, s 2048, 32/8 heads, d 128,
-// causal) dQ does 6*d FLOPs and dK/dV 8*d FLOPs per visible (q, k) pair and
-// query head, ~2e11 and ~2.8e11 FLOPs, against ~0.23 GB of inputs and
-// outputs: far above the card's ~295 FLOP/byte ridge, so the bound is the
-// tensor-core rate. Like the forward, these first kernels do not reach it:
-// their products are scalar fp32 FMAs out of shared memory. What the design
-// does do:
+// What bounds it: dQ does 6*d FLOPs and dK/dV 8*d FLOPs per visible
+// (q, k) pair and query head, far above the card's FLOP/byte ridge, so
+// the bound is the compute rate. These kernels stay scalar fp32 FMAs out
+// of shared memory because a wgmma product on fp32 inputs is TF32, which
+// could not hold the fp32 gradients to their reference at 1e-4. What the
+// design does do:
 // - dQ: one block per (b*H, 64 query rows) stages Q and dO once, walks the
 //   64-key K/V tiles up to the causal bound, and keeps the 64 x d fp32 dQ
 //   accumulator in registers; the dS tile lives only in shared memory.
@@ -31,9 +31,7 @@
 //   no per-query-head [b*H, sk, d] intermediates, no second reduction pass
 //   and no atomics. Both 64 x d fp32 accumulators stay in registers
 //   (256 threads: 4 key rows x d/16 columns each per accumulator).
-// Neither kernel writes a score-sized tensor to device memory. The fp32
-// kernels stay scalar because a wgmma product on fp32 inputs is TF32, which
-// could not hold the fp32 gradients to their reference at 1e-4.
+// Neither kernel writes a score-sized tensor to device memory.
 
 #include "common.cuh"
 
@@ -380,25 +378,19 @@ bool bad_shape(int b, int sq, int sk, int H, int KVH) {
 
 extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dq, int dtype, int b,
-                                int sq, int sk, int H, int KVH, int d,
-                                int causal, float scale, void* stream) {
+                                const void* delta, void* dq, int b, int sq,
+                                int sk, int H, int KVH, int d, int causal,
+                                float scale, void* stream) {
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32 && d == 64)
+  if (d == 64)
     err = launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
                                KVH, causal, scale, st);
-  else if (dtype == rtt::kFloat32 && d == 128)
+  else if (d == 128)
     err = launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
                                 KVH, causal, scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 64)
-    err = launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, b, sq,
-                                       sk, H, KVH, causal, scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 128)
-    err = launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, b, sq,
-                                        sk, H, KVH, causal, scale, st);
   return static_cast<int>(err);
 }
 

@@ -3,8 +3,8 @@
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dkv_kernel (pallas_call
 // at attention.py:368), on the bf16 path that training runs; fp32 inputs
-// keep the scalar kernel of flash_bwd.cu, and dQ keeps its scalar kernel
-// there on both dtypes. Same function: P = exp(S*scale - lse) recomputed
+// keep the scalar kernel of flash_bwd.cu (bf16 dQ is flash_bwd_dq_sm90.cu).
+// Same function: P = exp(S*scale - lse) recomputed
 // tile by tile from the forward's fp32 row logsumexp (masked under the
 // causal offset sk - sq), dS = P * (dO V^T - delta) with delta =
 // rowsum(dO * O) from the wrapper, dV = P^T dO and dK = scale * dS^T Q,

@@ -1,194 +1,473 @@
-// Paged decode attention for Hopper (sm_90a), fp32 or bf16 inputs.
+// Paged decode attention for Hopper (sm_90a), fp32 or bf16 inputs: split-K
+// over pages, then a deterministic merge.
 //
 // Replaces: ray_tpu/ops/paged_attention.py::_paged_kernel (launched by
 // paged_attention, pallas_call at paged_attention.py:172). Same function:
 // history-only attention of each slot's G query rows per kv head over the
-// pages its block table lists, positions < ctx_len only, folded page by
-// page into an online softmax. Returns the un-normalised triple
-// acc f32 [S, KVH, G, hd], m f32 [S, KVH, G], l f32 [S, KVH, G]; a slot
-// with ctx 0 returns acc 0, l 0, m -1e30. The caller merges the
-// in-flight token's self term (models/llama_paged.py).
+// pages its block table lists, positions < ctx_len only, folded into an
+// online softmax. Returns the un-normalised triple acc f32 [S, KVH, G,
+// hd], m f32 [S, KVH, G], l f32 [S, KVH, G]; a slot with ctx 0 returns acc
+// 0, l 0, m -1e30. The caller merges the in-flight token's self term
+// (models/llama_paged.py).
 //
 // Layout: q [S, KVH, G, hd]; k/v pools [P, KVH, page, hd] (one page of one
 // kv head is a contiguous page*hd run); block_table [S, MAXP] int32;
-// ctx_len [S] int32.
+// ctx_len [S] int32. Only entries of pages < ceil(ctx/page) are read; an
+// entry there that lies outside the pool is read as a JAX gather reads it
+// (negative ids count from the end, the rest clamp into [0, P-1]), like
+// clamp_page_ids in ops/paged_attention.py.
 //
 // What bounds it: every K/V byte of the history is used by only G (= 4 at
-// Llama-3-8B) query rows, ~2 FLOPs per byte, far below the card's ridge:
-// the bound is memory bandwidth over the ctx tokens' pages. Design: one
-// block per (slot, kv head) serves all G rows of the group, so each page
-// is read from device memory exactly once; the block reads its own
-// ctx_len and block-table entries (the TPU used scalar prefetch) and
-// walks only pages < ceil(ctx/page), never touching a table entry at or
-// past ctx, which may hold any id. An entry below ctx that lies outside
-// the pool is read as a JAX gather reads it (negative ids count from the
-// end, the rest clamp into [0, P-1]), like clamp_page_ids in
-// ops/paged_attention.py, so no id reads outside the pool. Each page is
-// staged once in shared memory; scores, the softmax fold and the fp32
-// accumulator stay on chip.
-// Not yet done: splitting long contexts across blocks (the (acc, m, l)
-// contract allows a split-K merge) and async copies of the next page.
+// Llama-3-8B) query rows, ~2 FLOPs per byte, far below the card's ridge,
+// and G rows do not fill a tensor-core tile: the bound is memory bandwidth
+// over the ctx tokens' pages, so the design aims at bytes in flight.
+// - Split-K. The grid is (S*KVH, n_split); block (unit, i) takes pages
+//   [i*pps, (i+1)*pps) of its slot, with pps (pages per split) chosen by
+//   the wrapper from shapes alone (ctx_len is never read back). A block
+//   whose first page is at or past ceil(ctx/page) writes an empty partial
+//   (m -1e30, l 0) and exits. At the serving shape (S 8, KVH 8, MAXP 16,
+//   page 64, ctx 116-516) that is 352 live one-page blocks, not 64
+//   serial walks of up to 9 pages.
+// - Within a block, 4 warps split each page's keys in 16-key sub-tiles,
+//   round robin, and each warp runs its own online softmax over its
+//   sub-tiles: no block barrier in the loop. A warp brings its K and V
+//   sub-tiles into shared memory with 16-byte cp.async copies in their
+//   storage dtype, the next sub-tile's copy in flight while it computes
+//   this one (two stages when the block has more sub-tiles than warps).
+//   Scores: LPK lanes share one key, each holding 16 bytes of its row
+//   against the pre-scaled fp32 q chunk in registers, reduced by xor
+//   shuffles. P.V: each lane accumulates hd/32 fp32 columns of all G rows.
+//   At the end the 4 warps' (m, l, acc) are combined in shared memory and
+//   the block writes its fp32 partial.
+// - Merge. A second small kernel combines each (slot, head)'s live splits
+//   in split order: m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i
+//   e^(m_i - m). A separate kernel rather than a last-block ticket: it
+//   keeps no counter state between calls and no fence/atomic protocol, and
+//   its ~0.7 MB of partials at the serving shape are still in L2. No float
+//   atomics anywhere, so two calls on the same inputs agree bit for bit.
+// Page size must be a multiple of 16; hd 64 or 128; G 1, 2, 4 or 8.
+
+#include <mutex>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 128;
+constexpr int NT = 128;      // threads per block
+constexpr int NW = NT / 32;  // warps per block
+constexpr int SUB = 16;      // keys per warp step (a sub-tile)
+constexpr int kMaxDevices = 64;
 
-size_t paged_smem_bytes(int G, int hd, int page) {
-  // Qs [G][hd] + Ks [page][hd+1] + Vs [page][hd] + Ps [G][page]
-  // + Acc [G][hd] + m, l, alpha [G], fp32
-  return sizeof(float) * (static_cast<size_t>(G) * hd +
-                          static_cast<size_t>(page) * (hd + 1) +
-                          static_cast<size_t>(page) * hd +
-                          static_cast<size_t>(G) * page +
-                          static_cast<size_t>(G) * hd + 3 * G);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                       const T* __restrict__ vp,
-                       const int* __restrict__ block_table,
-                       const int* __restrict__ ctx_len,
-                       float* __restrict__ acc_out,
-                       float* __restrict__ m_out, float* __restrict__ l_out,
-                       int KVH, int G, int hd, int page, int num_pages,
-                       int maxp, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + G * hd;
-  float* Vs = Ks + page * (hd + 1);
-  float* Ps = Vs + page * hd;
-  float* Acc = Ps + G * page;
-  float* Ms = Acc + G * hd;
-  float* Ls = Ms + G;
-  float* Al = Ls + G;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
 
-  const int slot = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int NW = NT / 32;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// N values of T at p (N * sizeof(T) bytes, 4, 8 or 16, aligned to their
+// size) as fp32; bf16 widens exactly.
+template <typename T, int N>
+__device__ __forceinline__ void load_floats(const T* p, float (&o)[N]) {
+  constexpr int W = N * static_cast<int>(sizeof(T)) / 4;  // 32-bit words
+  static_assert(W == 1 || W == 2 || W == 4, "4, 8 or 16 bytes");
+  uint32_t w[W];
+  if constexpr (W == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (W == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      o[i] = __uint_as_float(w[i]);
+    } else {
+      o[2 * i] = __uint_as_float(w[i] << 16);
+      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// Two stages per warp when a block has more sub-tiles than warps, else one.
+__host__ __device__ __forceinline__ int n_stages(int pps, int page) {
+  return pps * page / SUB > NW ? 2 : 1;
+}
+
+template <typename T, int HD>
+constexpr int kStageBytes = 2 * SUB * HD * static_cast<int>(sizeof(T));
+
+template <typename T, int HD, int G>
+constexpr int smem_bytes(int stages) {
+  const int tiles = NW * stages * kStageBytes<T, HD>;
+  const int combine = NW * G * (HD + 2) * 4;
+  return tiles > combine ? tiles : combine;
+}
+
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(NT)
+paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                   const T* __restrict__ vp,
+                   const int* __restrict__ block_table,
+                   const int* __restrict__ ctx_len,
+                   float* __restrict__ part_acc, float* __restrict__ part_m,
+                   float* __restrict__ part_l, int KVH, int page,
+                   int num_pages, int maxp, int pps, int n_split,
+                   float scale) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // values per 16 B
+  constexpr int LPK = HD / VEC;  // lanes per key in the score product
+  constexpr int KPI = 32 / LPK;  // keys per warp iteration
+  constexpr int NI = SUB / KPI;  // iterations per sub-tile
+  constexpr int DPL = HD / 32;   // P.V output columns per lane
+  constexpr int TILE = SUB * HD;  // values of one K (or V) sub-tile
+  constexpr int CHUNKS = TILE * static_cast<int>(sizeof(T)) / 16 / 32;
+  static_assert(LPK <= 32 && 32 % LPK == 0 && CHUNKS >= 1, "shape");
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int unit = blockIdx.x;  // slot * KVH + kv head
+  const int split = blockIdx.y;
+  const int slot = unit / KVH;
+  const int kh = unit % KVH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long prow = (static_cast<long>(unit) * n_split + split) * G;
 
   const int ctx = ctx_len[slot];
   const int n_pages = ctx <= 0 ? 0 : min((ctx + page - 1) / page, maxp);
-  const long row0 = (static_cast<long>(slot) * KVH + kh) * G;  // first q row
-
-  for (int e = tid; e < G * hd; e += NT) {
-    Qs[e] = rtt::to_float(q[row0 * hd + e]) * scale;
-    Acc[e] = 0.f;
+  const int p_begin = split * pps;
+  if (p_begin >= n_pages) {
+    if (threadIdx.x < G) {
+      part_m[prow + threadIdx.x] = rtt::kNegInf;
+      part_l[prow + threadIdx.x] = 0.f;
+    }
+    return;
   }
-  for (int g = tid; g < G; g += NT) {
-    Ms[g] = rtt::kNegInf;
-    Ls[g] = 0.f;
+  const int key_begin = p_begin * page;
+  const int key_end = min(ctx, min(p_begin + pps, n_pages) * page);
+  const int n_sub = (key_end - key_begin + SUB - 1) / SUB;
+
+  // this lane's chunk of every query row, pre-scaled
+  const int j = lane / LPK, c = lane % LPK;
+  float qr[G][VEC];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    load_floats<T, VEC>(q + (static_cast<long>(unit) * G + g) * HD + c * VEC,
+                        qr[g]);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qr[g][e] *= scale;
   }
 
-  for (int p = 0; p < n_pages; ++p) {
-    long pid = block_table[static_cast<long>(slot) * maxp + p];
+  // the warp's stage buffers: stage s holds K [SUB][HD] then V [SUB][HD]
+  const int stages = n_stages(pps, page);
+  T* const wbuf = reinterpret_cast<T*>(smem) + warp * stages * 2 * TILE;
+  auto issue = [&](int t, int s) {
+    const int key0 = key_begin + t * SUB;
+    long pid = block_table[static_cast<long>(slot) * maxp + key0 / page];
     if (pid < 0) pid += num_pages;
     pid = pid < 0 ? 0 : (pid >= num_pages ? num_pages - 1 : pid);
-    const long page_off = (pid * KVH + kh) * static_cast<long>(page) * hd;
-    __syncthreads();  // previous page's readers are done; Qs/Acc written
-    for (int e = tid; e < page * hd; e += NT) {
-      const int r = e / hd, c = e % hd;
-      Ks[r * (hd + 1) + c] = rtt::to_float(kp[page_off + e]);
-      Vs[e] = rtt::to_float(vp[page_off + e]);
+    const long off = ((pid * KVH + kh) * page + key0 % page) * HD;
+    const uint8_t* ks = reinterpret_cast<const uint8_t*>(kp + off);
+    const uint8_t* vs = reinterpret_cast<const uint8_t*>(vp + off);
+    const uint32_t kd = smem_u32(wbuf + s * 2 * TILE);
+    const uint32_t vd = kd + TILE * sizeof(T);
+#pragma unroll
+    for (int r = 0; r < CHUNKS; ++r) {
+      const int i = 16 * (lane + 32 * r);
+      cp_async16(kd + i, ks + i);
+      cp_async16(vd + i, vs + i);
     }
-    __syncthreads();
+  };
 
-    const int base = p * page;
-    for (int e = tid; e < G * page; e += NT) {
-      const int g = e / page, c = e % page;
-      const float* qr = Qs + g * hd;
-      const float* kr = Ks + c * (hd + 1);
-      float s = 0.f;
-      for (int dd = 0; dd < hd; ++dd) s = fmaf(qr[dd], kr[dd], s);
-      Ps[e] = base + c < ctx ? s : rtt::kNegInf;
+  float m_w[G], l_w[G], acc[G][DPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m_w[g] = rtt::kNegInf;
+    l_w[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[g][e] = 0.f;
+  }
+
+  if (warp < n_sub) issue(warp, 0);
+  cp_async_commit();
+  for (int t = warp, s = 0; t < n_sub; t += NW, s = stages == 2 ? s ^ 1 : 0) {
+    if (t + NW < n_sub) issue(t + NW, s ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const T* Ks = wbuf + s * 2 * TILE;
+    const T* Vs = Ks + TILE;
+    const int key0 = key_begin + t * SUB;
+
+    // scores of key it*KPI + j for every row, in the lanes of group j
+    float sc[NI][G];
+#pragma unroll
+    for (int it = 0; it < NI; ++it) {
+      float kf[VEC];
+      load_floats<T, VEC>(Ks + (it * KPI + j) * HD + c * VEC, kf);
+      const bool valid = key0 + it * KPI + j < ctx;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a = fmaf(qr[g][e], kf[e], a);
+#pragma unroll
+        for (int off = LPK / 2; off > 0; off >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, off);
+        sc[it][g] = valid ? a : rtt::kNegInf;
+      }
     }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += NW) {
-      float* pr = Ps + g * page;
-      float mx = rtt::kNegInf;
-      for (int c = lane; c < page; c += 32) mx = fmaxf(mx, pr[c]);
-      mx = rtt::group_max<32>(mx);
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, mx);
+    // online softmax over the sub-tile, per row
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = m_w[g];
+#pragma unroll
+      for (int it = 0; it < NI; ++it) mx = fmaxf(mx, sc[it][g]);
+#pragma unroll
+      for (int off = LPK; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float alpha = expf(m_w[g] - mx);
+      m_w[g] = mx;
       float rs = 0.f;
-      for (int c = lane; c < page; c += 32) {
-        const float w = base + c < ctx ? expf(pr[c] - m_new) : 0.f;
-        pr[c] = w;
-        rs += w;
+#pragma unroll
+      for (int it = 0; it < NI; ++it) {
+        const bool valid = key0 + it * KPI + j < ctx;
+        const float p = valid ? expf(sc[it][g] - mx) : 0.f;
+        sc[it][g] = p;
+        rs += p;
       }
-      rs = rtt::group_sum<32>(rs);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        Ls[g] = Ls[g] * alpha + rs;
-        Ms[g] = m_new;
-        Al[g] = alpha;
-      }
+#pragma unroll
+      for (int off = LPK; off < 32; off <<= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l_w[g] = l_w[g] * alpha + rs;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] *= alpha;
     }
-    __syncthreads();
+    // acc += P V over the sub-tile's keys before ctx (V past ctx may hold
+    // anything)
+#pragma unroll
+    for (int it = 0; it < NI; ++it)
+#pragma unroll
+      for (int jj = 0; jj < KPI; ++jj) {
+        const int kk = it * KPI + jj;
+        if (key0 + kk >= ctx) continue;  // uniform across the warp
+        float vf[DPL];
+        load_floats<T, DPL>(Vs + kk * HD + lane * DPL, vf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float p = __shfl_sync(0xffffffffu, sc[it][g], jj * LPK);
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
+      }
+    __syncwarp();  // every lane is done with stage s before it refills
+  }
+  cp_async_wait<0>();
 
-    for (int e = tid; e < G * hd; e += NT) {
-      const int g = e / hd, dd = e % hd;
-      const float* pr = Ps + g * page;
-      float a = Acc[e] * Al[g];
-      for (int c = 0; c < page; ++c) a = fmaf(pr[c], Vs[c * hd + dd], a);
-      Acc[e] = a;
+  // combine the warps: [NW][G] m, [NW][G] l, [NW][G][HD] acc in fp32
+  __syncthreads();
+  float* wm = reinterpret_cast<float*>(smem);
+  float* wl = wm + NW * G;
+  float* wacc = wl + NW * G;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (lane == 0) {
+      wm[warp * G + g] = m_w[g];
+      wl[warp * G + g] = l_w[g];
     }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e)
+      wacc[(warp * G + g) * HD + lane * DPL + e] = acc[g][e];
   }
   __syncthreads();
+  for (int e = threadIdx.x; e < G * HD; e += NT) {
+    const int g = e / HD;
+    float m = wm[g];
+#pragma unroll
+    for (int w = 1; w < NW; ++w) m = fmaxf(m, wm[w * G + g]);
+    float a = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float f = expf(wm[w * G + g] - m);
+      a = fmaf(wacc[w * G * HD + e], f, a);
+      l = fmaf(wl[w * G + g], f, l);
+    }
+    part_acc[prow * HD + e] = a;
+    if (e % HD == 0) {
+      part_m[prow + g] = m;
+      part_l[prow + g] = l;
+    }
+  }
+}
 
-  for (int e = tid; e < G * hd; e += NT) acc_out[row0 * hd + e] = Acc[e];
-  for (int g = tid; g < G; g += NT) {
-    m_out[row0 + g] = Ms[g];
-    l_out[row0 + g] = Ls[g];
+// One block per (slot, kv head): the live splits of its row, in order.
+__global__ void __launch_bounds__(NT)
+paged_merge_kernel(const float* __restrict__ part_acc,
+                   const float* __restrict__ part_m,
+                   const float* __restrict__ part_l,
+                   const int* __restrict__ ctx_len, float* __restrict__ acc,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
+                   int KVH, int G, int hd, int page, int maxp, int pps,
+                   int n_split) {
+  const int unit = blockIdx.x;
+  const int ctx = ctx_len[unit / KVH];
+  const int n_pages = ctx <= 0 ? 0 : min((ctx + page - 1) / page, maxp);
+  const int n_live = (n_pages + pps - 1) / pps;
+  const long row0 = static_cast<long>(unit) * n_split * G;
+  for (int e = threadIdx.x; e < G * hd; e += NT) {
+    const int g = e / hd, d = e % hd;
+    float m = rtt::kNegInf;
+    for (int i = 0; i < n_live; ++i) m = fmaxf(m, part_m[row0 + i * G + g]);
+    float a = 0.f, l = 0.f;
+    for (int i = 0; i < n_live; ++i) {
+      const long r = row0 + i * G + g;
+      const float f = expf(part_m[r] - m);
+      a = fmaf(part_acc[r * hd + d], f, a);
+      l = fmaf(part_l[r], f, l);
+    }
+    acc[static_cast<long>(unit) * G * hd + e] = a;
+    if (d == 0) {
+      m_out[static_cast<long>(unit) * G + g] = m;
+      l_out[static_cast<long>(unit) * G + g] = l;
+    }
+  }
+}
+
+// Allow the split kernel its dynamic shared memory (above 48 KB), once per
+// instantiation and device rather than on every call.
+template <typename T, int HD, int G>
+cudaError_t allow_smem() {
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(mu);
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(paged_split_kernel<T, HD, G>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<T, HD, G>(2));
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <typename T, int HD, int G>
+cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const void* bt, const void* ctx, void* part_acc,
+                   void* part_m, void* part_l, int S, int KVH, int page,
+                   int num_pages, int maxp, int pps, int n_split,
+                   float scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem<T, HD, G>();
+  if (err != cudaSuccess) return err;
+  const int smem = smem_bytes<T, HD, G>(n_stages(pps, page));
+  dim3 grid(S * KVH, n_split);
+  paged_split_kernel<T, HD, G><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), static_cast<const int*>(bt),
+      static_cast<const int*>(ctx), static_cast<float*>(part_acc),
+      static_cast<float*>(part_m), static_cast<float*>(part_l), KVH, page,
+      num_pages, maxp, pps, n_split, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_g(int G, const void* q, const void* kp, const void* vp,
+                     const void* bt, const void* ctx, void* part_acc,
+                     void* part_m, void* part_l, int S, int KVH, int page,
+                     int num_pages, int maxp, int pps, int n_split,
+                     float scale, cudaStream_t st) {
+  switch (G) {
+    case 1:
+      return launch<T, HD, 1>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
+                              S, KVH, page, num_pages, maxp, pps, n_split,
+                              scale, st);
+    case 2:
+      return launch<T, HD, 2>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
+                              S, KVH, page, num_pages, maxp, pps, n_split,
+                              scale, st);
+    case 4:
+      return launch<T, HD, 4>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
+                              S, KVH, page, num_pages, maxp, pps, n_split,
+                              scale, st);
+    case 8:
+      return launch<T, HD, 8>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
+                              S, KVH, page, num_pages, maxp, pps, n_split,
+                              scale, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* bt, const void* ctx, void* acc, void* m,
-                   void* l, int S, int KVH, int G, int hd, int page,
-                   int num_pages, int maxp, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = paged_smem_bytes(G, hd, page);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(S, KVH);
-  paged_attention_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(bt),
-      static_cast<const int*>(ctx), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l), KVH, G, hd, page,
-      num_pages, maxp, scale);
-  return cudaGetLastError();
+cudaError_t launch_hd(int hd, int G, const void* q, const void* kp,
+                      const void* vp, const void* bt, const void* ctx,
+                      void* part_acc, void* part_m, void* part_l, int S,
+                      int KVH, int page, int num_pages, int maxp, int pps,
+                      int n_split, float scale, cudaStream_t st) {
+  if (hd == 64)
+    return launch_g<T, 64>(G, q, kp, vp, bt, ctx, part_acc, part_m, part_l,
+                           S, KVH, page, num_pages, maxp, pps, n_split,
+                           scale, st);
+  if (hd == 128)
+    return launch_g<T, 128>(G, q, kp, vp, bt, ctx, part_acc, part_m, part_l,
+                            S, KVH, page, num_pages, maxp, pps, n_split,
+                            scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The split pass: fp32 partials part_acc [S, KVH, n_split, G, hd], part_m
+// and part_l [S, KVH, n_split, G], n_split = ceil(maxp / pps).
 extern "C" int rtt_paged_attention(const void* q, const void* kp,
                                    const void* vp, const void* block_table,
-                                   const void* ctx_len, void* acc, void* m,
-                                   void* l, int dtype, int S, int KVH, int G,
-                                   int hd, int page, int num_pages, int maxp,
-                                   float scale, void* stream) {
-  if (S <= 0 || KVH <= 0 || G <= 0 || hd <= 0 || page <= 0 ||
-      num_pages <= 0 || maxp <= 0 || KVH > 65535)
+                                   const void* ctx_len, void* part_acc,
+                                   void* part_m, void* part_l, int dtype,
+                                   int S, int KVH, int G, int hd, int page,
+                                   int num_pages, int maxp, int pps,
+                                   int n_split, float scale, void* stream) {
+  if (S <= 0 || KVH <= 0 || G <= 0 || page <= 0 || page % SUB != 0 ||
+      num_pages <= 0 || maxp <= 0 || pps <= 0 ||
+      n_split != (maxp + pps - 1) / pps || n_split > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == rtt::kFloat32)
-    return static_cast<int>(launch<float>(q, kp, vp, block_table, ctx_len,
-                                          acc, m, l, S, KVH, G, hd, page,
-                                          num_pages, maxp, scale, st));
+    return static_cast<int>(launch_hd<float>(
+        hd, G, q, kp, vp, block_table, ctx_len, part_acc, part_m, part_l, S,
+        KVH, page, num_pages, maxp, pps, n_split, scale, st));
   if (dtype == rtt::kBFloat16)
-    return static_cast<int>(launch<__nv_bfloat16>(
-        q, kp, vp, block_table, ctx_len, acc, m, l, S, KVH, G, hd, page,
-        num_pages, maxp, scale, st));
+    return static_cast<int>(launch_hd<__nv_bfloat16>(
+        hd, G, q, kp, vp, block_table, ctx_len, part_acc, part_m, part_l, S,
+        KVH, page, num_pages, maxp, pps, n_split, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The merge pass: the (acc, m, l) triple from the split pass's partials.
+extern "C" int rtt_paged_merge(const void* part_acc, const void* part_m,
+                               const void* part_l, const void* ctx_len,
+                               void* acc, void* m, void* l, int S, int KVH,
+                               int G, int hd, int page, int maxp, int pps,
+                               int n_split, void* stream) {
+  if (S <= 0 || KVH <= 0 || G <= 0 || hd <= 0 || page <= 0 || maxp <= 0 ||
+      pps <= 0 || n_split != (maxp + pps - 1) / pps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  paged_merge_kernel<<<S * KVH, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
+      static_cast<const float*>(part_l), static_cast<const int*>(ctx_len),
+      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+      KVH, G, hd, page, maxp, pps, n_split);
+  return static_cast<int>(cudaGetLastError());
 }

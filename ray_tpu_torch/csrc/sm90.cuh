@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the bf16 attention kernels, as
 // inline PTX: mbarriers, TMA tile loads, wgmma descriptors and products,
 // register hand-off between warpgroups, and the host-side encoding of
-// the TMA tensor maps. The kernels that use them are flash_fwd_sm90.cu
-// and flash_bwd_dkv_sm90.cu.
+// the TMA tensor maps. The kernels that use them are flash_fwd_sm90.cu,
+// flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu.
 //
 // Shared-memory tiles are bf16 [rows][64] boxes written by TMA with the
 // 128-byte swizzle: each row is 128 bytes, and the 16-byte chunks of row

@@ -13,11 +13,11 @@ tensor the kernels cannot take raises.
 
 ``flash_route`` picks the kernels from the inputs' device, dtype and
 head dim: bf16 on the card takes the Hopper kernels that run wgmma on
-bf16 tiles fed by TMA (``csrc/flash_fwd_sm90.cu`` and, for dK/dV,
-``csrc/flash_bwd_dkv_sm90.cu``); fp32 on the card takes the scalar
-kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which hold fp32
-to 1e-4 where a wgmma on fp32 inputs would be TF32. dQ runs its scalar
-kernel (``csrc/flash_bwd.cu``) on both dtypes.
+bf16 tiles fed by TMA (``csrc/flash_fwd_sm90.cu``,
+``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``); fp32 on
+the card takes the scalar kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), which hold fp32 to 1e-4 where a wgmma on fp32
+inputs would be TF32.
 
 ``flash_attention`` is the ``torch.autograd.Function`` over the two, the
 counterpart of the reference's ``custom_vjp``.
@@ -119,8 +119,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def flash_route(dtype: torch.dtype, head_dim: int, device) -> str:
     """Which flash kernels take inputs of this dtype, head dim and device:
-    ``"sm90"`` (bf16 on the card, head_dim 64 or 128: the wgmma kernels),
-    ``"scalar"`` (fp32 on the card, head_dim 64 or 128), ``"plain"`` (the
+    ``"sm90"`` (bf16 on the card, head_dim 64 or 128: the wgmma kernels
+    of the forward, dQ and dK/dV), ``"scalar"`` (fp32 on the card,
+    head_dim 64 or 128: the scalar kernels), ``"plain"`` (the
     CPU: the plain PyTorch versions, any dtype and head dim). Anything
     else raises ``ValueError``: there is no fallback."""
     kind = torch.device(device).type
@@ -238,10 +239,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernels 3 and 4's wrapper: (dq, dk, dv) of attention with output
     ``o`` and row logsumexp ``lse`` [b*H, sq] (``flash_forward``'s) under
     the cotangent ``do``. The route is ``flash_route``'s: CPU tensors take
-    ``flash_backward_plain``; CUDA tensors (contiguous) launch the scalar
-    dQ kernel of ``csrc/flash_bwd.cu`` and the dK/dV kernel of
-    ``csrc/flash_bwd_dkv_sm90.cu`` (bf16) or ``csrc/flash_bwd.cu`` (fp32)
-    on the current stream, or raise. ``delta = rowsum(dO * O)`` is
+    ``flash_backward_plain``; CUDA tensors (contiguous) launch the dQ
+    and dK/dV kernels of ``csrc/flash_bwd_dq_sm90.cu`` and
+    ``csrc/flash_bwd_dkv_sm90.cu`` (bf16) or of ``csrc/flash_bwd.cu``
+    (fp32) on the current stream, or raise. ``delta = rowsum(dO * O)`` is
     computed here with torch ops, as XLA computes it outside the Pallas
     kernels."""
     if sm_scale is None:
@@ -275,30 +276,33 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     args = (b, sq, sk, h, kvh, d, int(bool(causal)), float(sm_scale))
-    dkv_entry = (lib.rtt_flash_bwd_dkv_sm90 if route == "sm90"
-                 else lib.rtt_flash_bwd_dkv)
+    sm90 = route == "sm90"
+    dq_entry = lib.rtt_flash_bwd_dq_sm90 if sm90 else lib.rtt_flash_bwd_dq
+    dkv_entry = lib.rtt_flash_bwd_dkv_sm90 if sm90 else lib.rtt_flash_bwd_dkv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rtt_flash_bwd_dq(
+        err = dq_entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _DTYPE_CODES[q.dtype], *args, stream)
-        _build.check(lib, err, "flash_backward dQ kernel")
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args, stream)
+        _build.check(lib, err, f"flash_backward {route} dQ kernel")
         flash_backward.dq_launches += 1
+        if sm90:
+            flash_backward.dq_sm90_launches += 1
         err = dkv_entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *args, stream)
         _build.check(lib, err, f"flash_backward {route} dK/dV kernel")
         flash_backward.dkv_launches += 1
-        if route == "sm90":
+        if sm90:
             flash_backward.dkv_sm90_launches += 1
     return dq, dk, dv
 
 
-# kernel launches, for chip_smoke.py: all routes, and dK/dV's bf16 wgmma
-# route
+# kernel launches, for chip_smoke.py: all routes, and the bf16 wgmma
+# route of each kernel
 flash_backward.dq_launches = 0
+flash_backward.dq_sm90_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dkv_sm90_launches = 0
 

@@ -9,8 +9,9 @@ steps over 8 slots (the ``chip_smoke.py`` serving shape: history
 tokens. For each it prints the host wall time (median of 3 unprofiled
 runs), the device busy time from one ``torch.profiler`` run (sum of
 kernel times; one stream, so kernels do not overlap), the device idle
-share, and the kernels that take the most device time. Needs one card;
-imports nothing of JAX.
+share, the kernels that take the most device time and, for the paged
+chunk, the share of the paged attention kernels (split and merge passes
+together). Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def _kernel_times(prof) -> dict:
     return out
 
 
-def run(name: str, fn, steps: int, top: int = 8) -> None:
+def run(name: str, fn, steps: int, top: int = 8, share: str = "") -> None:
     fn()                                  # warm: allocator, cuBLAS plans
     walls = []
     for _ in range(3):                    # host wall without the profiler
@@ -61,6 +62,10 @@ def run(name: str, fn, steps: int, top: int = 8) -> None:
     for k, us in sorted(kt.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {us / 1e3 / steps:8.4f} ms/step  {100 * us / 1e3 / busy:5.1f}%"
               f"  {k[:90]}", flush=True)
+    if share:
+        us = sum(t for k, t in kt.items() if share in k)
+        print(f"    {us / 1e3 / steps:8.4f} ms/step  {100 * us / 1e3 / busy:5.1f}%"
+              f"  all kernels named *{share}*", flush=True)
 
 
 def main() -> None:
@@ -94,7 +99,7 @@ def main() -> None:
                       device=dev).reshape(S, maxp)
     run("paged decode chunk", lambda: llama_paged.paged_decode_chunk(
         cfg, params, pool, toks, pos, act, bt, args.steps, sample=False),
-        args.steps)
+        args.steps, share="paged_")
     del pool
 
     rows = torch.ones((S, 512), dtype=torch.int32, device=dev)

@@ -34,10 +34,9 @@ from ray_tpu_torch.models import llama
 
 LAYERS, BATCH, SEQ = 8, 4, 2048
 
-# the bf16 step's attention kernels: the wgmma forward and dK/dV, and the
-# scalar dQ
+# the bf16 step's attention kernels, all on the wgmma route
 _KERNELS = {"flash forward (kernel 1)": "flash_fwd_sm90_kernel",
-            "flash dQ (kernel 3)": "flash_bwd_dq_kernel",
+            "flash dQ (kernel 3)": "flash_bwd_dq_sm90_kernel",
             "flash dK/dV (kernel 4)": "flash_bwd_dkv_sm90_kernel"}
 
 

@@ -1,4 +1,4 @@
-"""Device time of the bf16 flash-attention kernels of one checkout.
+"""Device time of the bf16 attention kernels of one checkout.
 
     python3 ray_tpu_torch/tools/time_attention.py [--tree DIR]
 
@@ -12,11 +12,19 @@ parent commit unpacked under ``_tree/parent``::
 Times, on bf16 inputs with 32/8 heads and d 128, causal: the forward
 wrapper at the dense engine's largest prefill (b 8, s 512) and at the
 training shape (b 4, s 2048), by CUDA events around each call after a
-256 MB write that evicts the 50 MB L2 (mean of 20); the dK/dV kernel of
-the backward at the training shape, by ``torch.profiler`` over 10 calls
-of the backward wrapper (device time of the kernels whose name holds
-``flash_bwd_dkv``). Prints one JSON line with the card's name and power
-limit. Needs one card; imports nothing of JAX.
+512 MB write that evicts the 50 MB L2 and keeps the card busy while the
+host enqueues the call (mean of 20), as ``chip_smoke.py`` times; the dQ and dK/dV
+kernels of the backward at the training shape, by ``torch.profiler``
+over 10 calls of the backward wrapper (device time of the kernels whose
+name holds ``flash_bwd_dq`` or ``flash_bwd_dkv``). The paged wrapper at
+``chip_smoke.py`` phase 1's decode shape (8 slots, 8 kv heads, G 4, page
+64, 16-entry tables, history 116..516), three ways: CUDA events around
+each call after the same L2 write (mean of 50; what ``chip_smoke.py``
+reports), the device time of its kernels (name holding ``paged``) from
+``torch.profiler`` over 50 calls, each after the L2 write, and the host
+time of one call (mean over 200 calls, synchronised at the end). Prints
+one JSON line with the card's name and power limit. Needs one card;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -46,7 +55,7 @@ def main() -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.ops import attention, paged_attention
 
     assert Path(attention.__file__).resolve().is_relative_to(tree)
     if not torch.cuda.is_available():
@@ -54,7 +63,7 @@ def main() -> None:
     dev = torch.device("cuda")
     H, KVH, D, dt = 32, 8, 128, torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    flush = torch.empty(128 << 20, dtype=torch.float32, device=dev)
 
     def inputs(b, s):
         return [torch.randn(b, s, h, D, generator=g, device=dev).to(dt)
@@ -80,21 +89,60 @@ def main() -> None:
                          ("fwd_ms_b4_s2048", (4, 2048))):
         q, k, v, _ = inputs(b, s)
         out[name] = events_ms(lambda: attention.flash_forward(q, k, v, True))
+    def profiled_ms(fn, keys, iters):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(keys, 0.0)
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for key in keys:
+                if key in evt.name:
+                    us[key] += evt.time_range.elapsed_us()
+        return {key: t / 1e3 / iters for key, t in us.items()}
+
     q, k, v, do = inputs(4, 2048)
     o, lse = attention.flash_forward(q, k, v, True)
-    attention.flash_backward(q, k, v, o, lse, do, True)
+    bwd = profiled_ms(
+        lambda: attention.flash_backward(q, k, v, o, lse, do, True),
+        ("flash_bwd_dq", "flash_bwd_dkv"), 10)
+    out["dq_ms_b4_s2048"] = bwd["flash_bwd_dq"]
+    out["dkv_ms_b4_s2048"] = bwd["flash_bwd_dkv"]
+    del q, k, v, do, o, lse
+
+    S, G, page, maxp = 8, 4, 64, 16
+    ctx = [m + 16 for m in (100, 157, 214, 271, 328, 385, 442, 500)]
+    P = S * maxp + 8
+    q = torch.randn(S, KVH, G, D, generator=g, device=dev).to(dt)
+    kp = torch.randn(P, KVH, page, D, generator=g, device=dev).to(dt)
+    vp = torch.randn(P, KVH, page, D, generator=g, device=dev).to(dt)
+    bt = torch.zeros(S, maxp, dtype=torch.int32)
+    ids = torch.randperm(P, generator=torch.Generator().manual_seed(2))
+    used = 0
+    for s, c in enumerate(ctx):
+        n = -(-c // page)
+        bt[s, :n] = ids[used:used + n].to(torch.int32)
+        used += n
+    bt = bt.to(dev)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+
+    def paged():
+        paged_attention.paged_attention(q, kp, vp, bt, ctx_t)
+
+    out["paged_ms_events"] = events_ms(paged, iters=50)
+    out["paged_ms_device"] = profiled_ms(paged, ("paged",), 50)["paged"]
+    paged()
     torch.cuda.synchronize()
-    iters, us = 10, 0.0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            attention.flash_backward(q, k, v, o, lse, do, True)
-        torch.cuda.synchronize()
-    for evt in prof.events():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and "flash_bwd_dkv" in evt.name):
-            us += evt.time_range.elapsed_us()
-    out["dkv_ms_b4_s2048"] = us / 1e3 / iters
+    t0 = time.perf_counter()
+    for _ in range(200):
+        paged()
+    torch.cuda.synchronize()
+    out["paged_ms_host"] = (time.perf_counter() - t0) / 200 * 1e3
     print(json.dumps(out), flush=True)
 
 

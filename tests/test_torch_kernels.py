@@ -7,14 +7,18 @@ on the CPU.
   the card.
 - ``flash_route`` sends each (dtype, head dim, device) to the wgmma
   kernels, the scalar kernels, the plain versions, or a ``ValueError``.
-- The bf16 forward and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
-  ``csrc/flash_bwd_dkv_sm90.cu``) emulated in plain torch: fp32 products
-  of bf16 inputs, the scale applied to S in fp32 through exp2, 128-key
-  tiles of online softmax in the forward, and P (and dS) rounded to bf16
-  before the second products. The emulation agrees with the Pallas
-  kernels in interpret mode on the same bf16 inputs within 2e-2 (atol
-  and rtol): the tolerance the card holds the kernels to (chip_smoke.py
-  phase 1).
+- The bf16 forward, dQ and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
+  ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``)
+  emulated in plain torch: fp32 products of bf16 inputs, the scale
+  applied to S in fp32 through exp2, 128-key tiles of online softmax in
+  the forward, and P (and dS) rounded to bf16 before the second
+  products. The emulation agrees with the Pallas kernels in interpret
+  mode on the same bf16 inputs within 2e-2 (atol and rtol): the
+  tolerance the card holds the kernels to (chip_smoke.py phase 1).
+- The split-K paged kernel (``csrc/paged_attention.cu``) emulated in
+  plain torch: fp32 partials ``(acc_i, m_i, l_i)`` over runs of pages,
+  merged in split order. It agrees with the Pallas page-walk kernel in
+  interpret mode in fp32 within 1e-5, for splits of 1, 2 and 3 pages.
 - ``params_from_numpy`` resolves its default device like every other
   entry point of the port.
 """
@@ -31,9 +35,11 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from ray_tpu.ops import attention as jattn  # noqa: E402
+from ray_tpu.ops import paged_attention as jpaged  # noqa: E402
 from ray_tpu_torch.models.convert import params_from_numpy  # noqa: E402
 from ray_tpu_torch.ops import _build  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
+from ray_tpu_torch.ops import paged_attention as tpaged  # noqa: E402
 from ray_tpu_torch.ops.layers import repeat_kv  # noqa: E402
 
 torch.set_num_threads(1)
@@ -169,6 +175,24 @@ def emulate_dkv_sm90(q, k, v, o, lse, do, causal, scale):
     return dk.bfloat16(), dv.bfloat16()
 
 
+def emulate_dq_sm90(q, k, v, o, lse, do, causal, scale):
+    """The bf16 dQ kernel's arithmetic: P in exp2 from lse * log2 e, dS
+    rounded to bf16 before the dQ product; returns dq in bf16."""
+    b, sq, h, d = q.shape
+    _, sk, kvh, _ = k.shape
+    qf, dof = q.float(), do.float()
+    kf = repeat_kv(k, h // kvh).float()
+    vf = repeat_kv(v, h // kvh).float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)[..., None]
+    t = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * LOG2E)
+    p = torch.exp2(t - lse.reshape(b, h, sq, 1) * LOG2E)
+    if causal:
+        p = torch.where(_visible(sq, sk), p, 0.0)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.bfloat16().float(), kf) * scale
+    return dq.bfloat16()
+
+
 def _bf16_inputs(case, seed):
     """Inputs as float32 numpy arrays whose values are bf16-exact."""
     b, sq, sk, h, kvh, d, _ = BF16_CASES[case]
@@ -224,6 +248,26 @@ def test_dkv_sm90_arithmetic_matches_pallas_interpret(case):
 
 
 @pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_dq_sm90_arithmetic_matches_pallas_interpret(case):
+    q, k, v, g = _bf16_inputs(case, seed=65)
+    causal = BF16_CASES[case][-1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    jq, jk, jv, jg = map(_jbf16, (q, k, v, g))
+    out, lse = jattn._flash_forward(jq, jk, jv, causal, scale, 64, 64, True)
+    want_dq, _, _ = jattn._flash_backward(
+        jq, jk, jv, out, lse, jg, causal, scale, 64, 64, True)
+    tq, tk, tv, tg = (torch.from_numpy(a).bfloat16() for a in (q, k, v, g))
+    to = torch.from_numpy(np.array(jnp.asarray(out, jnp.float32)))
+    tlse = torch.from_numpy(np.array(lse)[..., 0])
+    got_dq = emulate_dq_sm90(tq, tk, tv, to.bfloat16(), tlse, tg, causal,
+                             scale)
+    assert got_dq.dtype == torch.bfloat16
+    assert tuple(got_dq.shape) == want_dq.shape
+    np.testing.assert_allclose(_f32(got_dq), _f32(want_dq), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
 def test_sm90_emulation_rounds_p_to_bf16(case):
     """The emulated forward differs from the fp32 plain version only by
     the bf16 rounding of P and O, not by more."""
@@ -237,6 +281,108 @@ def test_sm90_emulation_rounds_p_to_bf16(case):
     np.testing.assert_allclose(_f32(emu_lse), _f32(plain_lse), atol=1e-5)
     diff = (emu_o.float() - plain_o).abs().max().item()
     assert 0.0 < diff <= 2e-2
+
+
+# ------------------------------------------------------ split-K paged
+
+
+def emulate_paged_split(q, k_pages, v_pages, block_table, ctx_len, scale,
+                        pps):
+    """The split-K paged kernel's arithmetic in fp32: each run of ``pps``
+    pages below ceil(ctx/page) gives a partial (acc_i, m_i, l_i) with its
+    own max; the partials merge in split order. Returns (acc, m, l)."""
+    S, KVH, G, hd = q.shape
+    P, _, page, _ = k_pages.shape
+    maxp = block_table.shape[1]
+    ids = tpaged.clamp_page_ids(block_table, P)
+    acc = torch.zeros(S, KVH, G, hd)
+    m = torch.full((S, KVH, G), -1e30)
+    l = torch.zeros(S, KVH, G)
+    for s in range(S):
+        ctx = int(ctx_len[s])
+        n_pages = min(-(-ctx // page), maxp)
+        parts = []
+        for p0 in range(0, n_pages, pps):
+            pages = ids[s, p0:min(p0 + pps, n_pages)]
+            keys = k_pages[pages].float().movedim(1, 0).reshape(KVH, -1, hd)
+            vals = v_pages[pages].float().movedim(1, 0).reshape(KVH, -1, hd)
+            n = min(ctx, (p0 + len(pages)) * page) - p0 * page
+            t = torch.einsum("kgd,ktd->kgt", q[s].float() * scale,
+                             keys[:, :n])
+            m_i = t.amax(-1)
+            p_i = torch.exp(t - m_i[..., None])
+            parts.append((torch.einsum("kgt,ktd->kgd", p_i, vals[:, :n]),
+                          m_i, p_i.sum(-1)))
+        if not parts:
+            continue
+        m[s] = torch.stack([m_i for _, m_i, _ in parts]).amax(0)
+        for a_i, m_i, l_i in parts:
+            f = torch.exp(m_i - m[s])
+            acc[s] += a_i * f[..., None]
+            l[s] += l_i * f
+    return acc, m, l
+
+
+def _split_case(seed, page=16, maxp=6, P=40):
+    """Contexts 0, 1, a run of two pages exactly and the full table; one
+    table entry below ctx lies past the pool, entries past ctx hold ids no
+    kernel may read."""
+    rng = np.random.default_rng(seed)
+    S, KVH, G, hd = 4, 2, 4, 32
+    ctx = np.array([0, 1, 2 * page, maxp * page], np.int32)
+    q = rng.standard_normal((S, KVH, G, hd)).astype(np.float32)
+    kp = rng.standard_normal((P, KVH, page, hd)).astype(np.float32)
+    vp = rng.standard_normal((P, KVH, page, hd)).astype(np.float32)
+    bt = rng.integers(0, P, (S, maxp)).astype(np.int32)
+    for s, c in enumerate(ctx):
+        bt[s, -(-c // page):] = 10_000 + s
+    bt[3, 4] = P + 3          # below ctx: read as page P - 1 by both sides
+    return q, kp, vp, bt, ctx
+
+
+@pytest.mark.parametrize("pps", [1, 2, 3])
+def test_paged_split_emulation_matches_pallas_interpret(pps):
+    q, kp, vp, bt, ctx = _split_case(seed=80 + pps)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    with jax.default_matmul_precision("highest"):
+        want = jpaged.paged_attention(
+            *map(jnp.asarray, (q, kp, vp, bt, ctx)), interpret=True)
+    got = emulate_paged_split(*map(torch.from_numpy, (q, kp, vp, bt, ctx)),
+                              scale, pps)
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w), atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
+    # the ctx-0 slot's triple is exact
+    assert float(got[0][0].abs().max()) == 0.0
+    assert float(got[2][0].max()) == 0.0
+    assert bool((got[1][0] == -1e30).all())
+
+
+@pytest.mark.parametrize("slots,kv_heads,maxp,want", [
+    (8, 8, 16, (1, 16)),      # the serving shape: one page a block
+    (5, 8, 64, (3, 22)),      # chip_smoke.py's split-boundary pool
+    (1, 1, 4, (1, 4)),
+    (512, 8, 16, (16, 1)),    # enough slots: one walk per (slot, head)
+])
+def test_split_pages_covers_the_table(slots, kv_heads, maxp, want):
+    pps, n_split = tpaged.split_pages(slots, kv_heads, maxp)
+    assert (pps, n_split) == want
+    assert (n_split - 1) * pps < maxp <= n_split * pps
+
+
+@pytest.mark.parametrize("hd,group,page,ok", [
+    (128, 4, 64, True), (64, 1, 16, True), (128, 8, 32, True),
+    (96, 4, 64, False), (128, 3, 64, False), (128, 4, 8, False),
+])
+def test_paged_kernel_shapes(hd, group, page, ok):
+    """On the card the wrapper raises before any launch for a head dim,
+    group size or page size the kernel is not built for (the CPU's plain
+    version takes any)."""
+    if ok:
+        tpaged.check_kernel_shape(hd, group, page)
+    else:
+        with pytest.raises(ValueError, match="not supported on the card"):
+            tpaged.check_kernel_shape(hd, group, page)
 
 
 # ------------------------------------------------------------- convert
