@@ -27,16 +27,23 @@ Phases, each printing what it finds; any failure exits non-zero:
    dQ/dK/dV pair), with the least time the card could take. The backward
    is timed at the training shape, the paged wrapper (its split and
    merge launches) at the decode shape.
-2. fp32, full Llama-3-8B width, 2 layers: the dense engine (flash
-   prefill) and the paged engine (paged decode) give identical greedy
-   transcripts, which agree with a cache-free forward pass through the
-   reference attention.
+2. fp32, 2 layers, at full Llama-3-8B, Qwen2-7B and Gemma-7B width: the
+   dense engine (flash prefill) and the paged engine (paged decode) give
+   identical greedy transcripts, which agree with a cache-free forward
+   pass through the reference attention.
 3. bf16 Llama-3-8B, all 32 layers, one shared set of random weights:
    the dense engine, then the paged engine (with a prefix-cache hit),
    each answer 8 requests with 32 tokens; the launch counters show
    their kernels ran, every flash launch on the wgmma route; TTFT and
    ITL medians.
-4. fp32, full Llama-3-8B width, 2 layers, batch 2 x seq 256: the loss and
+   Phase 1 also holds the paged kernel at the published shapes that
+   Qwen2 and Gemma give it (G 7 under the row maximum 8 at hd 128 and
+   64, G 1 and G 8 at hd 256; fp32 and bf16; the old contexts and a 64-page
+   table; timed at the decode shape) and the flash forward, dQ and dK/dV
+   at head dim 256 on the scalar route (16/16 heads; timed at b 8 x s
+   512 and, the backward, b 2 x s 2048).
+4. fp32, 2 layers, batch 2 x seq 256, at full Llama-3-8B width and then
+   full Gemma-7B width (head dim 256, the scalar backward): the loss and
    every gradient leaf through the flash kernels match the reference
    attention's (max |dg| <= 1e-4 max |g| per leaf), and full remat
    matches no remat.
@@ -47,9 +54,21 @@ Phases, each printing what it finds; any failure exits non-zero:
    forward (twice under remat) and both backward kernels ran on every
    layer of every step, all three on the wgmma route; step
    time, tokens/s, MFU, peak memory.
+6. Qwen2-7B and Gemma-7B at full width (configs from
+   ``llama_config_from_hf`` on their published config.json values, bf16
+   random weights from seed 0, 28 layers each) through the dense and
+   then the paged engine with phase 3's requests: the flash forward
+   launches once a layer a prefill batch (the wgmma route at Qwen2's
+   head dim 128, the scalar one at Gemma's 256), the paged kernel once a
+   layer a decode step; TTFT and ITL medians.
+7. training GPT-2 125M whole (batch 8 x 1024) and Mixtral-8x7B width cut
+   to 2 layers (batch 4 x 2048), 5 AdamW steps each: losses fall, every
+   layer's forward, dQ and dK/dV run on the wgmma route; step time,
+   tokens/s, MFU, peak memory.
 
-The second line from the end is the kernel table as JSON (launches of
-the serving kernels from phase 3, of the backward kernels from phase 5);
+The second line from the end is the kernel table as JSON, one row per
+kernel and instance route (launches of the serving kernels from phases
+3 and 6, of the backward kernels from phases 5 and 4's Gemma run);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -72,6 +91,45 @@ from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# config.json values of the published models phases 4 and 6 build
+# (Qwen/Qwen2-7B, google/gemma-7b), written out so that the configs build
+# without transformers or a download; llama_config_from_hf reads them as
+# attributes
+PUBLISHED = {
+    "Qwen2-7B": dict(vocab_size=152064, hidden_size=3584,
+                     intermediate_size=18944, num_hidden_layers=28,
+                     num_attention_heads=28, num_key_value_heads=4,
+                     max_position_embeddings=131072, rope_theta=1000000.0,
+                     rms_norm_eps=1e-6, tie_word_embeddings=False,
+                     use_sliding_window=False, hidden_act="silu"),
+    "Gemma-7B": dict(vocab_size=256000, hidden_size=3072,
+                     intermediate_size=24576, num_hidden_layers=28,
+                     num_attention_heads=16, num_key_value_heads=16,
+                     head_dim=256, max_position_embeddings=8192,
+                     rope_theta=10000.0, rms_norm_eps=1e-6,
+                     tie_word_embeddings=True,
+                     hidden_activation="gelu_pytorch_tanh"),
+}
+
+
+def published_config(model: str):
+    """The port's LlamaConfig of a ``PUBLISHED`` model, through
+    ``llama_config_from_hf``: Qwen2 with its q/k/v biases; Gemma with the
+    deltas ``gemma_from_hf`` applies (GeGLU, sqrt(hidden) embed scale,
+    tied head; its norms' +1 lives in the weights)."""
+    import math
+    import types
+    from dataclasses import replace
+
+    from ray_tpu_torch.models.hf_weights import llama_config_from_hf
+
+    attrs = types.SimpleNamespace(**PUBLISHED[model])
+    cfg = llama_config_from_hf(attrs, attn_qkv_bias=model == "Qwen2-7B")
+    if model == "Gemma-7B":
+        cfg = replace(cfg, mlp_act="gelu_tanh",
+                      embed_scale=math.sqrt(attrs.hidden_size))
+    return cfg
 
 
 def fail(msg: str) -> None:
@@ -528,30 +586,224 @@ def paged_phase(dev, ctx_main) -> dict:
             worst = max(worst, _paged_check(
                 f"KVH {kvh} G {grp} hd {hd} {name}", got, want, ctx, tol))
 
-    # timing at the paged engine's decode shape, bf16: the wrapper's two
-    # launches (split and merge) together
-    dt = torch.bfloat16
-    q, kp, vp, bt, bt_plain, ctx = _paged_inputs(dev, dt, g, ctx_main)
-    ms = time_ms(lambda: paged_attention(q, kp, vp, bt, ctx), iters=50)
-    plain_ms = time_ms(lambda: paged_attention_reference(
-        q, kp, vp, bt_plain, ctx), iters=20)
-    S, KVH, G, hd = q.shape
-    page = kp.shape[2]
-    tok = sum(ctx_main)
-    pages = sum(-(-c // page) for c in ctx_main)
-    nbytes = (q.numel() * 2 + 2 * tok * KVH * hd * 2 + pages * 4 + S * 4
-              + S * KVH * G * (hd + 2) * 4)
-    flops = 4.0 * tok * KVH * G * hd
-    bnd, by = bound_ms(nbytes, flops, dt)
-    pps, n_split = split_pages(S, KVH, bt.shape[1])
-    print(f"  paged timing S={S} ctx={ctx_main} bf16 ({pps} page(s) x "
-          f"{n_split} splits): split + merge {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    ms, plain_ms, bnd, by = _paged_timing(dev, torch.bfloat16, g, ctx_main)
     return {"name": "paged_attention", "route": "cuda",
             "source": "ray_tpu_torch/csrc/paged_attention.cu",
             "replaces": "ray_tpu/ops/paged_attention.py:83",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
+def _paged_timing(dev, dt, g, ctx_main, KVH=8, G=4, hd=128, what=""):
+    """The wrapper's two launches (split and merge) together at the paged
+    engine's decode shape: (ms, plain ms, bound ms, bound by)."""
+    from ray_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   paged_attention_reference,
+                                                   split_pages)
+
+    q, kp, vp, bt, bt_plain, ctx = _paged_inputs(dev, dt, g, ctx_main,
+                                                 KVH=KVH, G=G, hd=hd)
+    ms = time_ms(lambda: paged_attention(q, kp, vp, bt, ctx), iters=50)
+    plain_ms = time_ms(lambda: paged_attention_reference(
+        q, kp, vp, bt_plain, ctx), iters=20)
+    S = q.shape[0]
+    page = kp.shape[2]
+    size = q.element_size()
+    tok = sum(ctx_main)
+    pages = sum(-(-c // page) for c in ctx_main)
+    nbytes = (q.numel() * size + 2 * tok * KVH * hd * size + pages * 4
+              + S * 4 + S * KVH * G * (hd + 2) * 4)
+    flops = 4.0 * tok * KVH * G * hd
+    bnd, by = bound_ms(nbytes, flops, dt)
+    pps, n_split = split_pages(S, KVH, bt.shape[1])
+    print(f"  paged timing {what}S={S} KVH={KVH} G={G} hd={hd} "
+          f"ctx={ctx_main} {str(dt)[6:]} ({pps} page(s) x {n_split} "
+          f"splits): split + merge {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by})", flush=True)
+    return ms, plain_ms, bnd, by
+
+
+# (model, kv heads, query rows per kv head, head dim) of the published
+# configurations the paged kernel's new instances serve
+PAGED_FAMILIES = (("Qwen2-7B", 4, 7, 128), ("Qwen2-0.5B", 2, 7, 64),
+                  ("Gemma-7B", 16, 1, 256), ("Gemma-2B", 1, 8, 256))
+
+
+def paged_families_phase(dev, ctx_main) -> list:
+    """The paged kernel at the GQA groups and head dims of Qwen2 and
+    Gemma, fp32 and bf16: the old contexts (ctx 0 among them) and a
+    64-page table, each against the plain version; then timed at the
+    decode shape in both dtypes. Rows for the Qwen2-7B (G 7 under the
+    row maximum 8) and Gemma-7B (hd 256) instances, which the served
+    models launch; the errors of Qwen2-0.5B's (G 7, hd 64) and Gemma-2B's
+    (G 8, hd 256) instances join those rows."""
+    from ray_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   paged_attention_reference,
+                                                   split_pages)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    ctx_check = [0, 1, 63, 64, 65, 300, 517, 1024]
+    rows = {}
+    for model, kvh, grp, hd in PAGED_FAMILIES:
+        worst = 0.0
+        for dt in (torch.float32, torch.bfloat16):
+            tol = (1e-4, 1e-5) if dt == torch.float32 else (2e-2, 2e-2)
+            name = f"{model} KVH {kvh} G {grp} hd {hd} {str(dt)[6:]}"
+            maxp = 64
+            pps, n_split = split_pages(5, kvh, maxp)
+            run = pps * 64
+            for ctxs, mp in ((ctx_check, 16),
+                             ([1, run - 1, run, run + 1, maxp * 64], maxp)):
+                q, kp, vp, bt, bt_plain, ctx = _paged_inputs(
+                    dev, dt, g, ctxs, KVH=kvh, G=grp, hd=hd, maxp=mp)
+                got = paged_attention(q, kp, vp, bt, ctx)
+                want = paged_attention_reference(q.float(), kp.float(),
+                                                 vp.float(), bt_plain, ctx)
+                torch.cuda.synchronize()
+                worst = max(worst, _paged_check(
+                    f"{name} MAXP {mp} ctx={ctxs}", got, want, ctx, tol))
+                del q, kp, vp, got, want
+        times = {dt: _paged_timing(dev, dt, g, ctx_main, KVH=kvh, G=grp,
+                                   hd=hd, what=f"{model} ")
+                 for dt in (torch.float32, torch.bfloat16)}
+        rows[model] = (worst, times[torch.bfloat16])
+    out = []
+    for model, key, also in (("Qwen2-7B", "gm8_hd128", "Qwen2-0.5B"),
+                             ("Gemma-7B", "gm1_hd256", "Gemma-2B")):
+        worst, (ms, plain_ms, bnd, by) = rows[model]
+        worst = max(worst, rows[also][0])
+        out.append({"name": f"paged_attention_{key}", "route": "cuda",
+                    "source": "ray_tpu_torch/csrc/paged_attention.cu",
+                    "replaces": "ray_tpu/ops/paged_attention.py:83",
+                    "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bnd, "bound_by": by, "library_ms": None})
+    return out
+
+
+def flash_d256_phase(dev) -> list:
+    """The flash forward, dQ and dK/dV at head dim 256 (Gemma's), fp32 and
+    bf16, 16/16 heads: every launch on the scalar route, each against its
+    plain version, with masks on ragged lengths and sq < sk; timed at the
+    Gemma serving prefill (b 8 x s 512) and, for the backward, at b 2 x s
+    2048, beside scaled_dot_product_attention and its backward."""
+    from ray_tpu_torch.ops.attention import (flash_backward,
+                                             flash_backward_plain,
+                                             flash_forward,
+                                             flash_forward_plain)
+
+    H = KVH = 16
+    D = 256
+    g = torch.Generator(device=dev).manual_seed(6)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def inputs(b, sq, sk, dt):
+        return [torch.randn(b, n, H, D, generator=g, device=dev).to(dt)
+                for n in (sq, sk, sk, sq)]
+
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    dts = (torch.float32, torch.bfloat16)
+    before = counters()
+    n_calls = 0
+    for b, sq, sk, causal in ((8, 512, 512, True), (1, 100, 100, True),
+                              (2, 128, 300, True), (1, 512, 512, False),
+                              (2, 2048, 2048, True)):
+        for dt in dts:
+            q, k, v, do = inputs(b, sq, sk, dt)
+            o, lse = flash_forward(q, k, v, causal)
+            o_ref, lse_ref = flash_forward_plain(q.float(), k.float(),
+                                                 v.float(), causal)
+            got = flash_backward(q, k, v, o, lse, do, causal)
+            want = flash_backward_plain(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), causal)
+            torch.cuda.synchronize()
+            n_calls += 1
+            fp32 = dt == torch.float32
+            tol_f = (1e-4, 0.0) if fp32 else (2e-2, 2e-2)
+            tol_b = (1e-4, 1e-4) if fp32 else (2e-2, 2e-2)
+            res = [close(o, o_ref, *tol_f), close(lse, lse_ref, *tol_f)]
+            res += [close(a, w, *tol_b) for a, w in zip(got, want)]
+            print(f"  flash d=256 b={b} sq={sq} sk={sk} causal={causal} "
+                  f"{str(dt)[6:]}: max|dO|={res[0][1]:.3e} "
+                  f"max|dlse|={res[1][1]:.3e} max|ddq|={res[2][1]:.3e} "
+                  f"max|ddk|={res[3][1]:.3e} max|ddv|={res[4][1]:.3e}",
+                  flush=True)
+            check(all(ok for ok, _ in res), f"d-256 flash kernels disagree "
+                  f"with their plain versions (b={b} sq={sq} sk={sk} "
+                  f"causal={causal} {dt})")
+            worst["fwd"] = max(worst["fwd"], res[0][1], res[1][1])
+            worst["dq"] = max(worst["dq"], res[2][1])
+            worst["dkv"] = max(worst["dkv"], res[3][1], res[4][1])
+            del q, k, v, do, o, lse, o_ref, lse_ref, got, want
+    n = counters()
+    check(n["fwd"] - before["fwd"] == n["dq"] - before["dq"]
+          == n["dkv"] - before["dkv"] == n_calls
+          and n["fwd_sm90"] == before["fwd_sm90"]
+          and n["dq_sm90"] == before["dq_sm90"]
+          and n["dkv_sm90"] == before["dkv_sm90"],
+          "d-256 launches did not all take the scalar kernels")
+
+    rows = []
+    # the forward at the Gemma serving prefill: 8 prompts of 512, causal
+    b, s = 8, 512
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, _ = inputs(b, s, s, dt)
+        ms = time_ms(lambda: flash_forward(q, k, v, True), iters=10)
+        plain_ms = time_ms(lambda: flash_forward_plain(q, k, v, True),
+                           iters=3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=10)
+        size = q.element_size()
+        bnd, by = bound_ms(4 * b * s * H * D * size + b * H * s * 4,
+                           4.0 * b * H * (s * (s + 1) // 2) * D, dt)
+        print(f"  flash d=256 timing b={b} s={s} causal {str(dt)[6:]}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+        del q, k, v, qt, kt, vt
+    rows.append({"name": "flash_attention_fwd_scalar", "route": "cuda",
+                 "source": "ray_tpu_torch/csrc/flash_fwd.cu",
+                 "replaces": "ray_tpu/ops/attention.py:78",
+                 "max_abs_err": worst["fwd"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms})
+    # the backward at b 2 x s 2048, causal
+    b, s = 2, 2048
+    pairs = s * (s + 1) // 2
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = inputs(b, s, s, dt)
+        o, lse = flash_forward_plain(q.float(), k.float(), v.float(), True)
+        o = o.to(dt).contiguous()
+        ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
+                       ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+        plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
+                                                        True), iters=3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = sdpa(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del out
+        size = q.element_size()
+        ins = 4 * b * s * H * D * size + 2 * b * H * s * 4
+        cur = []
+        for name, key, flops, outs, line in (
+                ("flash_attention_bwd_dq_scalar", "flash_bwd_dq_kernel",
+                 6.0 * b * H * pairs * D, b * s * H * D * size, 207),
+                ("flash_attention_bwd_dkv_scalar", "flash_bwd_dkv_kernel",
+                 8.0 * b * H * pairs * D, 2 * b * s * KVH * D * size, 253)):
+            bnd, by = bound_ms(ins + outs, flops, dt)
+            print(f"  {name} d=256 timing b={b} s={s} causal "
+                  f"{str(dt)[6:]}: kernel {ks[key]:.4f} ms, bound "
+                  f"{bnd:.4f} ms ({by}); plain dq+dk+dv {plain_ms:.4f} ms, "
+                  f"sdpa backward dq+dk+dv {lib_ms:.4f} ms", flush=True)
+            cur.append({"name": name, "route": "cuda",
+                        "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+                        "replaces": f"ray_tpu/ops/attention.py:{line}",
+                        "max_abs_err": worst[name.split("_")[3]],
+                        "ms": ks[key], "plain_ms": plain_ms,
+                        "bound_ms": bnd, "bound_by": by,
+                        "library_ms": lib_ms})
+        del q, k, v, do, o, lse, qt, kt, vt
+    return rows + cur    # the bf16 times in the rows
 
 
 # ------------------------------------------------------------ phases 2, 3
@@ -606,15 +858,27 @@ def counters() -> dict:
             "dkv_sm90": flash_backward.dkv_sm90_launches}
 
 
-def fp32_phase(dev) -> None:
+def _model_config(cfg) -> dict:
+    """An engine's ``model_config`` that rebuilds ``cfg`` field by field."""
+    from dataclasses import fields
+
+    return {"preset": "llama3_8b",
+            **{f.name: getattr(cfg, f.name) for f in fields(cfg)}}
+
+
+def fp32_phase(dev, cfg, name) -> None:
+    """fp32, ``cfg`` at 2 layers: the dense and paged engines' greedy
+    transcripts are identical and every token is the argmax of a
+    cache-free forward through the reference attention."""
+    from dataclasses import replace
+
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.llm_engine import LLMEngine
     from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
 
-    mc = {"preset": "llama3_8b", "num_layers": 2, "dtype": "float32",
-          "param_dtype": "float32"}
-    cfg = llama.LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32,
-                                      param_dtype=torch.float32)
+    cfg = replace(cfg, num_layers=2, dtype=torch.float32,
+                  param_dtype=torch.float32)
+    mc = _model_config(cfg)
     params = llama.init_params(cfg, seed=0, device=dev)
     rng = np.random.default_rng(11)
     reqs = [(f"f{i}", [int(t) for t in rng.integers(1, cfg.vocab_size, n)])
@@ -638,17 +902,16 @@ def fp32_phase(dev) -> None:
     check(pa2 > 0, "fp32 paged engine never launched the paged kernel")
     check(counters()["paged_merge"] == pa2,
           "fp32 paged engine: split and merge launches differ")
-    print(f"  fp32 2-layer: dense flash launches {fl}, paged launches "
-          f"{pa2}; transcripts identical: {got_d == got_p}", flush=True)
+    print(f"  fp32 2-layer {name}: dense flash launches {fl}, paged "
+          f"launches {pa2}; transcripts identical: {got_d == got_p}",
+          flush=True)
     check(got_d == got_p, f"fp32 dense and paged transcripts differ:\n"
           f"{got_d}\n{got_p}")
     # teacher-forced check against the cache-free forward pass through
     # the reference attention (independent of the flash kernel the dense
     # engine ran): every generated token is its argmax (up to a 1e-3
     # near-tie)
-    oracle = llama.LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32,
-                                         param_dtype=torch.float32,
-                                         attn_impl="reference")
+    oracle = replace(cfg, attn_impl="reference")
     for rid, prompt in reqs:
         seq = prompt + got_d[rid]
         with torch.no_grad():
@@ -660,20 +923,23 @@ def fp32_phase(dev) -> None:
         check(torch.isfinite(logits).all().item(), "non-finite logits")
         check(gap <= 1e-3, f"{rid}: engine token is not the reference "
               f"argmax (logit gap {gap})")
-    print("  fp32 2-layer: transcripts agree with llama.forward", flush=True)
+    print(f"  fp32 2-layer {name}: transcripts agree with llama.forward",
+          flush=True)
 
 
 # ------------------------------------------------------------ phases 4, 5
 
 
-def grad_phase(dev) -> None:
+def grad_phase(dev, cfg) -> int:
+    """fp32 gradients of ``cfg`` (2 layers) through the flash kernels
+    against the reference attention's and against no remat. Returns the
+    dQ launches of the flash run."""
     from dataclasses import replace
 
     from ray_tpu_torch.models import llama
 
-    cfg = llama.LlamaConfig.llama3_8b(num_layers=2, dtype=torch.float32,
-                                      param_dtype=torch.float32,
-                                      attn_impl="flash")
+    cfg = replace(cfg, num_layers=2, dtype=torch.float32,
+                  param_dtype=torch.float32, attn_impl="flash", remat=True)
     params = llama.init_params(cfg, seed=0, device=dev)
     leaves = llama.param_leaves(params)
     for _, leaf in leaves:
@@ -715,6 +981,7 @@ def grad_phase(dev) -> None:
               f"{worst:.3e} over {len(leaves)} leaves", flush=True)
         check(dl <= 1e-4 * abs(l_other), f"flash vs {what}: loss differs")
         del g_other
+    return n["dq"]
 
 
 def train_phase(dev) -> dict:
@@ -855,6 +1122,217 @@ def serve_8b_phase(dev) -> dict:
             "paged_attention": result["paged"]["launches"][1]}
 
 
+# ------------------------------------------------------------ phases 6, 7
+
+
+def _counted(eng):
+    """Count the engine's prefill batches (dense engine) and dispatched
+    decode steps, by wrapping its two dispatch methods."""
+    n = {"prefill_batches": 0, "decode_steps": 0}
+    if hasattr(eng, "_prefill_batch"):
+        prefill = eng._prefill_batch
+
+        def counted_prefill(*a):
+            n["prefill_batches"] += 1
+            return prefill(*a)
+        eng._prefill_batch = counted_prefill
+    run_chunk = eng._run_chunk
+
+    def counted_chunk(act, k, *a):
+        n["decode_steps"] += k
+        return run_chunk(act, k, *a)
+    eng._run_chunk = counted_chunk
+    return n
+
+
+def serve_family_phase(dev, model) -> dict:
+    """A published model at full width, bf16 random weights from seed 0,
+    through the dense and then the paged engine with phase 3's request
+    mix. The flash forward must launch once a layer a prefill batch (and
+    on the route its head dim takes), the paged kernel once a layer a
+    decode step. Returns the launches of its kernels."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    t0 = time.perf_counter()
+    cfg = replace(published_config(model), dtype=torch.bfloat16,
+                  param_dtype=torch.bfloat16, max_seq_len=1024)
+    L = cfg.num_layers
+    params = llama.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {model} bf16: {llama.num_params(params) / 1e9:.3f}e9 params, "
+          f"{L} layers, G {cfg.num_heads // cfg.num_kv_heads}, head_dim "
+          f"{cfg.head_dim_}, on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(12)
+    lens = (100, 157, 214, 271, 328, 385, 442, 500)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, m)]
+               for m in lens]
+    prompts[7] = prompts[1][:128] + prompts[7][128:]
+    first = [(f"q{i}", prompts[i]) for i in range(7)]
+    last = [("q7", prompts[7])]
+    kw = dict(model_config=_model_config(cfg), num_slots=8, max_len=1024,
+              prefill_buckets=[128, 512], chunk_steps=8, max_new_tokens=32,
+              eos_id=-1, params=params, device=dev)
+    sm90 = cfg.head_dim_ in (64, 128)
+    out_launches = {}
+    for name, make in (("dense", lambda: LLMEngine(**kw)),
+                       ("paged", lambda: PagedLLMEngine(page_size=64, **kw))):
+        counters_reset()
+        eng = make()
+        n_run = _counted(eng)
+        t1 = time.perf_counter()
+        out = drain(eng, first, 300)
+        out.update(drain(eng, last, 120))
+        wall = time.perf_counter() - t1
+        st = eng.stats()
+        stop(eng)
+        n = counters()
+        del eng
+        torch.cuda.empty_cache()
+        for rid, res in out.items():
+            check(len(res["tokens"]) == 32,
+                  f"{model} {name} {rid}: {len(res['tokens'])} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in res["tokens"]),
+                  f"{model} {name} {rid}: token out of vocabulary")
+        ttft = statistics.median(r["ttft_s"] for r in out.values()) * 1e3
+        itl = statistics.median((r["latency_s"] - r["ttft_s"]) / 31
+                                for r in out.values()) * 1e3
+        print(f"  {model} {name}: 8 requests x 32 tokens in {wall:.2f} s; "
+              f"TTFT p50 {ttft:.2f} ms, ITL p50 {itl:.3f} ms; prefill "
+              f"batches {n_run['prefill_batches']}, decode steps "
+              f"{n_run['decode_steps']}; flash forward launches {n['fwd']} "
+              f"(wgmma route {n['fwd_sm90']}), paged launches "
+              f"{n['paged']} (merges {n['paged_merge']})", flush=True)
+        if name == "dense":
+            want = L * n_run["prefill_batches"]
+            check(n_run["prefill_batches"] > 0 and n["fwd"] == want,
+                  f"{model} dense: {n['fwd']} flash forward launches, want "
+                  f"{L} layers x {n_run['prefill_batches']} prefill batches")
+            check(n["fwd_sm90"] == (n["fwd"] if sm90 else 0),
+                  f"{model} dense: {n['fwd_sm90']} of {n['fwd']} flash "
+                  f"launches on the wgmma route, want "
+                  f"{'all' if sm90 else 'none (head dim 256: scalar)'}")
+            out_launches["fwd"] = n["fwd"]
+        else:
+            want = L * n_run["decode_steps"]
+            check(n_run["decode_steps"] > 0 and n["paged"] == want
+                  and n["paged_merge"] == want,
+                  f"{model} paged: {n['paged']} split and "
+                  f"{n['paged_merge']} merge launches, want {L} layers x "
+                  f"{n_run['decode_steps']} decode steps")
+            print(f"  {model} paged: prefix_hit_tokens "
+                  f"{st['prefix_hit_tokens']}", flush=True)
+            check(st["prefix_hit_tokens"] >= 128,
+                  f"{model}: the shared 128-token prefix did not hit")
+            out_launches["paged"] = n["paged"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out_launches
+
+
+def _train(dev, name, mod, cfg, params, toks, steps, n_active,
+           qdim) -> dict:
+    """``steps`` AdamW(3e-4, weight decay 0.01) steps of ``mod.loss_fn``
+    on one batch: losses finite and falling, every layer's flash forward
+    (twice under remat), dQ and dK/dV on the wgmma route each step.
+    Prints step time, tokens/s, MFU (bench.py's formula on ``n_active``
+    params a token and ``qdim`` = heads x head dim) and peak memory;
+    returns the launch counts."""
+    from ray_tpu_torch.models.llama import param_leaves
+
+    leaves = [p.requires_grad_() for _, p in param_leaves(params)]
+    opt = torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01)
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    counters_reset()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = mod.loss_fn(cfg, params, {"tokens": toks})
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    runs = counters()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(walls[1:])
+    b, s = toks.shape[0], toks.shape[1] - 1
+    tok = b * s
+    flops = 6.0 * n_active * tok + 3.0 * 2.0 * 2.0 * 0.5 * L * s * tok \
+        * qdim
+    print(f"  {name}: losses {' '.join(f'{x:.4f}' for x in losses)}",
+          flush=True)
+    print(f"  {name}: step {step_s * 1e3:.1f} ms (median of steps 2-{steps};"
+          f" first {walls[0] * 1e3:.1f} ms), {tok / step_s:.1f} tokens/s, "
+          f"MFU {flops / step_s / PEAK_FLOPS[torch.bfloat16]:.4f} of 989 "
+          f"TFLOP/s on {n_active / 1e9:.3f}e9 params a token, peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"  {name}: launches flash forward {runs['fwd']} (wgmma route "
+          f"{runs['fwd_sm90']}), dQ {runs['dq']} (wgmma route "
+          f"{runs['dq_sm90']}), dK/dV {runs['dkv']} (wgmma route "
+          f"{runs['dkv_sm90']})", flush=True)
+    check(all(np.isfinite(losses)), f"{name}: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
+    check(runs["fwd"] == runs["fwd_sm90"] == 2 * L * steps,
+          f"{name}: {runs['fwd']} flash forward launches ({runs['fwd_sm90']}"
+          f" wgmma), want {2 * L * steps} on the wgmma route")
+    check(runs["dq"] == runs["dq_sm90"] == runs["dkv"] == runs["dkv_sm90"]
+          == L * steps, f"{name}: dQ/dK/dV launches {runs}, want "
+          f"{L * steps} each on the wgmma route")
+    del opt, leaves, loss
+    return runs
+
+
+def train_families_phase(dev) -> dict:
+    """GPT-2 125M whole (12 layers, head dim 64) on tokens of 1025, so
+    that the model sees 1024; then Mixtral-8x7B width (hidden 4096, ffn
+    14336, 8 experts top-2, 32/8 heads) cut to 2 layers for memory, batch
+    4 x 2048. fp32 params, bf16 compute, full remat, 5 steps each."""
+    from ray_tpu_torch.models import gpt2, llama, mixtral
+
+    runs = {}
+    rng = np.random.default_rng(0)
+    cfg = gpt2.GPT2Config.gpt2_125m()
+    params = gpt2.init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (8, 1025))).to(dev)
+    n = llama.num_params(params)
+    print(f"  GPT-2 125M: {n / 1e9:.4f}e9 params, batch 8 x 1024",
+          flush=True)
+    runs["gpt2"] = _train(dev, "GPT-2 125M", gpt2, cfg, params, toks, 5, n,
+                          cfg.hidden_size)
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = mixtral.MixtralConfig.mixtral_8x7b(num_layers=2)
+    params = mixtral.init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (4, 2049))).to(dev)
+    n = llama.num_params(params)
+    expert = 3 * cfg.hidden_size * cfg.intermediate_size * cfg.num_layers
+    n_active = n - (cfg.num_experts - cfg.top_k) * expert
+    print(f"  Mixtral-8x7B width, 2 layers: {n / 1e9:.3f}e9 params "
+          f"({n_active / 1e9:.3f}e9 active a token), batch 4 x 2048, "
+          f"capacity {mixtral._capacity(cfg, 4 * 2048)} a expert",
+          flush=True)
+    runs["mixtral"] = _train(dev, "Mixtral-8x7B width", mixtral, cfg, params,
+                             toks, 5, n_active,
+                             cfg.num_heads * cfg.head_dim_)
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -883,25 +1361,51 @@ def main() -> None:
     fwd = flash_phase(dev)
     dq, dkv = flash_bwd_phase(dev)
     kernels = [fwd, paged_phase(dev, ctx_main), dq, dkv]
-    print("phase 2: fp32 full width, 2 layers, dense vs paged", flush=True)
-    fp32_phase(dev)
+    kernels += paged_families_phase(dev, ctx_main)
+    kernels += flash_d256_phase(dev)
+    print("phase 2: fp32 full width, 2 layers, dense vs paged: Llama-3-8B, "
+          "Qwen2-7B, Gemma-7B", flush=True)
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    fp32_phase(dev, LlamaConfig.llama3_8b(), "Llama-3-8B")
+    for model in ("Qwen2-7B", "Gemma-7B"):
+        fp32_phase(dev, published_config(model), model)
+        gc.collect()
+        torch.cuda.empty_cache()
     print("phase 3: Llama-3-8B bf16, 32 layers, dense then paged",
           flush=True)
     launches = serve_8b_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     print("phase 4: fp32 full width, 2 layers, gradients through the "
-          "kernels", flush=True)
-    grad_phase(dev)
+          "kernels: Llama-3-8B (head dim 128), then Gemma-7B (head dim "
+          "256)", flush=True)
+    grad_phase(dev, LlamaConfig.llama3_8b())
+    gc.collect()
+    torch.cuda.empty_cache()
+    dq_d256 = grad_phase(dev, published_config("Gemma-7B"))
     gc.collect()
     torch.cuda.empty_cache()
     print("phase 5: training, Llama-3-8B width, 8 layers, 5 AdamW steps",
           flush=True)
     train = train_phase(dev)
-    # the serving kernels' counts come from phase 3, the backward kernels'
-    # from phase 5 (the forward's training count is printed there)
+    print("phase 6: Qwen2-7B and Gemma-7B bf16, full width, dense then "
+          "paged", flush=True)
+    qwen2 = serve_family_phase(dev, "Qwen2-7B")
+    gemma = serve_family_phase(dev, "Gemma-7B")
+    print("phase 7: training GPT-2 125M and Mixtral-8x7B width",
+          flush=True)
+    train_families_phase(dev)
+    # the serving kernels' counts come from phases 3 and 6, the backward
+    # kernels' from phase 5 (wgmma) and phase 4's Gemma run (scalar, head
+    # dim 256); the forward's training counts are printed in 5 and 7
     launches.update(flash_attention_bwd_dq=train["flash_attention_bwd_dq"],
-                    flash_attention_bwd_dkv=train["flash_attention_bwd_dkv"])
+                    flash_attention_bwd_dkv=train["flash_attention_bwd_dkv"],
+                    flash_attention_fwd_scalar=gemma["fwd"],
+                    paged_attention_gm8_hd128=qwen2["paged"],
+                    paged_attention_gm1_hd256=gemma["paged"],
+                    flash_attention_bwd_dq_scalar=dq_d256,
+                    flash_attention_bwd_dkv_scalar=dq_d256)
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     order = ("name", "route", "source", "replaces", "launches",

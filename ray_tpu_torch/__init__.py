@@ -1,4 +1,5 @@
-"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's model-serving path.
+"""ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's models, serving
+engines and training step.
 
 The JAX package ``ray_tpu`` is the reference; this package computes the
 same functions with PyTorch on an NVIDIA Hopper card, and every Pallas
@@ -9,7 +10,8 @@ has an obvious counterpart:
     ops/layers.py           <-> ray_tpu/ops/layers.py
     ops/attention.py        <-> ray_tpu/ops/attention.py      (kernel)
     ops/paged_attention.py  <-> ray_tpu/ops/paged_attention.py (kernel)
-    models/llama.py, llama_decode.py, llama_paged.py
+    models/llama.py, llama_decode.py, llama_paged.py, gpt2.py,
+    mixtral.py, hf_weights.py
     serve/llm_engine.py, serve/paged_engine.py
 
 Entry points run on the CUDA card unless the caller passes

@@ -1,6 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a), the scalar kernels for
-// fp32 inputs: dQ and dK/dV. bf16 inputs take the wgmma kernels fed by
-// TMA (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu).
+// Flash-attention backward for Hopper (sm_90a), the scalar kernels: dQ
+// and dK/dV for fp32 inputs at head dim 64, 128 and 256, and for bf16
+// inputs at head dim 256 (bf16 storage, fp32 arithmetic). bf16 at head dim
+// 64 and 128 takes the wgmma kernels fed by TMA (flash_bwd_dq_sm90.cu,
+// flash_bwd_dkv_sm90.cu).
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dq_kernel (pallas_call at
 // attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368), on
@@ -32,23 +34,34 @@
 //   and no atomics. Both 64 x d fp32 accumulators stay in registers
 //   (256 threads: 4 key rows x d/16 columns each per accumulator).
 // Neither kernel writes a score-sized tensor to device memory.
+// At head dim 256 (Gemma) the tiles halve to 32 query rows and 32 keys:
+// 64-row tiles would need 279,808 (dQ) and 296,448 (dK/dV) bytes of
+// shared memory against the 232,448 a block may take; 32-row tiles need
+// 135,808 and 140,032. There they are also the bf16 route: the simple kernels first, a
+// wgmma design is a later PR's work.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // keys per tile
 constexpr int NT = 256;  // threads per block: 16 row groups x 16 col groups
-constexpr int RI = 4;    // tile rows per thread: rg + 16*i
-constexpr int CJ = 4;    // tile columns per thread: cg + 16*j
 
-static_assert(BQ == 16 * RI && BK == 16 * CJ, "16 x 16 thread grid");
+// The tiles at head dim D: BQ query rows and BK keys, 64 each (32 at head
+// dim 256); each thread holds rows rg + 16*i (i < RI) and columns
+// cg + 16*j (j < CJ) of a score tile.
+template <int D>
+struct Tiles {
+  static constexpr int BQ = D > 128 ? 32 : 64;
+  static constexpr int BK = BQ;
+  static constexpr int RI = BQ / 16;
+  static constexpr int CJ = BK / 16;
+};
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
   // Qs, dOs [BQ][D+1] + Ks, Vs [BK][D+1] + dSs [BQ][BK+1], fp32; the +1
   // pads keep the column walks of the products bank-conflict free
+  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) +
                           BQ * (BK + 1));
 }
@@ -56,6 +69,7 @@ constexpr size_t dq_smem_bytes() {
 template <int D>
 constexpr size_t dkv_smem_bytes() {
   // Ks, Vs [BK][D+1] + Qs, dOs [BQ][D+1] + Ps, dSs [BQ][BK+1], fp32
+  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) +
                           2 * BQ * (BK + 1));
 }
@@ -71,9 +85,9 @@ __device__ __forceinline__ void stage(float* S, const T* __restrict__ base,
   }
 }
 
-// The score and dP tiles of one (64 query rows) x (64 keys) pair, for this
+// The score and dP tiles of one (BQ query rows) x (BK keys) pair, for this
 // thread's rows rg + 16*i and keys cg + 16*j: s = Q K^T, dp = dO V^T.
-template <int D>
+template <int D, int RI = Tiles<D>::RI, int CJ = Tiles<D>::CJ>
 __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
                                             const float* Ks, const float* Vs,
                                             int rg, int cg, float (&s)[RI][CJ],
@@ -125,6 +139,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int sq, int sk, int H, int KVH, int causal, float scale) {
+  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
+  constexpr int RI = Tiles<D>::RI, CJ = Tiles<D>::CJ;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + BQ * (D + 1);
@@ -222,6 +238,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int sq, int sk, int H, int KVH,
                      int causal, float scale) {
+  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
+  constexpr int RI = Tiles<D>::RI, CJ = Tiles<D>::CJ;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BK * (D + 1);
@@ -339,7 +357,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, b * H);
+  dim3 grid((sq + Tiles<D>::BQ - 1) / Tiles<D>::BQ, b * H);
   flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -359,7 +377,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       flash_bwd_dkv_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((sk + BK - 1) / BK, b * KVH);
+  dim3 grid((sk + Tiles<D>::BK - 1) / Tiles<D>::BK, b * KVH);
   flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -376,38 +394,53 @@ bool bad_shape(int b, int sq, int sk, int H, int KVH) {
 
 }  // namespace
 
+// dtype: fp32 at d 64, 128 or 256; bf16 at d 256.
 extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dq, int b, int sq,
-                                int sk, int H, int KVH, int d, int causal,
-                                float scale, void* stream) {
+                                const void* delta, void* dq, int dtype, int b,
+                                int sq, int sk, int H, int KVH, int d,
+                                int causal, float scale, void* stream) {
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 64)
+  if (dtype == rtt::kFloat32 && d == 64)
     err = launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
                                KVH, causal, scale, st);
-  else if (d == 128)
+  else if (dtype == rtt::kFloat32 && d == 128)
     err = launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
                                 KVH, causal, scale, st);
+  else if (dtype == rtt::kFloat32 && d == 256)
+    err = launch_dq<float, 256>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
+                                KVH, causal, scale, st);
+  else if (dtype == rtt::kBFloat16 && d == 256)
+    err = launch_dq<__nv_bfloat16, 256>(q, k, v, dout, lse, delta, dq, b, sq,
+                                        sk, H, KVH, causal, scale, st);
   return static_cast<int>(err);
 }
 
+// dtype: fp32 at d 64, 128 or 256; bf16 at d 256.
 extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int b,
-                                 int sq, int sk, int H, int KVH, int d,
-                                 int causal, float scale, void* stream) {
+                                 const void* delta, void* dk, void* dv,
+                                 int dtype, int b, int sq, int sk, int H,
+                                 int KVH, int d, int causal, float scale,
+                                 void* stream) {
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 64)
+  if (dtype == rtt::kFloat32 && d == 64)
     err = launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
                                 H, KVH, causal, scale, st);
-  else if (d == 128)
+  else if (dtype == rtt::kFloat32 && d == 128)
     err = launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
                                  H, KVH, causal, scale, st);
+  else if (dtype == rtt::kFloat32 && d == 256)
+    err = launch_dkv<float, 256>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
+                                 H, KVH, causal, scale, st);
+  else if (dtype == rtt::kBFloat16 && d == 256)
+    err = launch_dkv<__nv_bfloat16, 256>(q, k, v, dout, lse, delta, dk, dv, b,
+                                         sq, sk, H, KVH, causal, scale, st);
   return static_cast<int>(err);
 }

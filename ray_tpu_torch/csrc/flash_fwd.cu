@@ -1,5 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), fp32 inputs: the scalar
-// kernel. bf16 inputs take flash_fwd_sm90.cu (wgmma fed by TMA).
+// Flash-attention forward for Hopper (sm_90a), the scalar kernel: fp32
+// inputs at head dim 64, 128 and 256, and bf16 inputs at head dim 256
+// (bf16 storage, fp32 arithmetic). bf16 at head dim 64 and 128 takes
+// flash_fwd_sm90.cu (wgmma fed by TMA).
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_kernel (launched by
 // _flash_forward, pallas_call at attention.py:178). Same function: blocked
@@ -23,20 +25,28 @@
 // memory for all 64 query rows, never writes the score matrix to device
 // memory, and stops at the causal bound. It stays for fp32 because a wgmma
 // product on fp32 inputs is TF32, which could not hold the fp32 engines
-// and gradients to their references at 1e-4.
+// and gradients to their references at 1e-4. At head dim 256 it is also
+// the bf16 route, the simple kernel first (Gemma's head dim; a wgmma
+// design there is a later PR's work): its query tile halves to 32 rows
+// so that the tiles fit in shared memory (172,544 bytes) and the accumulator
+// stays at 64 registers a thread.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per tile
 constexpr int NT = 128;  // threads per block: 8 row groups x 16 col groups
+
+// query rows per block: 64, or 32 at head dim 256
+template <int D>
+constexpr int kBQ = D > 128 ? 32 : 64;
 
 template <int D>
 constexpr size_t flash_smem_bytes() {
   // Qs [BQ][D+1] + Ks [BK][D+1] + Vs [BK][D] + Ps [BQ][BK+1], fp32; the
   // +1 pads keep the column walks of the two products bank-conflict free
+  constexpr int BQ = kBQ<D>;
   return sizeof(float) *
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
@@ -47,6 +57,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int H, int KVH,
                  int causal, float scale) {
+  constexpr int BQ = kBQ<D>;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * (D + 1);
@@ -197,7 +208,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + BQ - 1) / BQ, b * H);
+  dim3 grid((sq + kBQ<D> - 1) / kBQ<D>, b * H);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
@@ -207,20 +218,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// dtype: fp32 at d 64, 128 or 256; bf16 at d 256.
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int b, int sq, int sk, int H,
-                             int KVH, int d, int causal, float scale,
-                             void* stream) {
+                             void* o, void* lse, int dtype, int b, int sq,
+                             int sk, int H, int KVH, int d, int causal,
+                             float scale, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || KVH <= 0 || H % KVH != 0 ||
       b * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (d == 64)
+  if (dtype == rtt::kFloat32 && d == 64)
     err = launch<float, 64>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
                             scale, st);
-  else if (d == 128)
+  else if (dtype == rtt::kFloat32 && d == 128)
     err = launch<float, 128>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
                              scale, st);
+  else if (dtype == rtt::kFloat32 && d == 256)
+    err = launch<float, 256>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
+                             scale, st);
+  else if (dtype == rtt::kBFloat16 && d == 256)
+    err = launch<__nv_bfloat16, 256>(q, k, v, o, lse, b, sq, sk, H, KVH,
+                                     causal, scale, st);
   return static_cast<int>(err);
 }

@@ -18,9 +18,10 @@
 // clamp_page_ids in ops/paged_attention.py.
 //
 // What bounds it: every K/V byte of the history is used by only G (= 4 at
-// Llama-3-8B) query rows, ~2 FLOPs per byte, far below the card's ridge,
-// and G rows do not fill a tensor-core tile: the bound is memory bandwidth
-// over the ctx tokens' pages, so the design aims at bytes in flight.
+// Llama-3-8B, 7 at Qwen2-7B) query rows, ~2 FLOPs per byte, far below the
+// card's ridge, and G rows do not fill a tensor-core tile: the bound is
+// memory bandwidth over the ctx tokens' pages, so the design aims at bytes
+// in flight.
 // - Split-K. The grid is (S*KVH, n_split); block (unit, i) takes pages
 //   [i*pps, (i+1)*pps) of its slot, with pps (pages per split) chosen by
 //   the wrapper from shapes alone (ctx_len is never read back). A block
@@ -33,19 +34,29 @@
 //   sub-tiles: no block barrier in the loop. A warp brings its K and V
 //   sub-tiles into shared memory with 16-byte cp.async copies in their
 //   storage dtype, the next sub-tile's copy in flight while it computes
-//   this one (two stages when the block has more sub-tiles than warps).
-//   Scores: LPK lanes share one key, each holding 16 bytes of its row
-//   against the pre-scaled fp32 q chunk in registers, reduced by xor
-//   shuffles. P.V: each lane accumulates hd/32 fp32 columns of all G rows.
-//   At the end the 4 warps' (m, l, acc) are combined in shared memory and
-//   the block writes its fp32 partial.
+//   this one (two stages when the block has more sub-tiles than warps and
+//   they fit: fp32 at hd 256 would need 256 KB, so it refills its one
+//   stage after use). Scores: LPK lanes share one key, each holding 16 or
+//   32 bytes of its row against the pre-scaled fp32 q chunk in registers,
+//   reduced by xor shuffles. Each key group keeps its scores in its own
+//   lanes (NI x G registers a lane), or, where that would pass 32
+//   registers (mostly G 5-8 and hd 256), lane kk keeps key kk's score of
+//   every row (G registers a lane, two more reductions over the warp).
+//   P.V: each lane accumulates hd/32 fp32 columns of all G rows. At the
+//   end the 4 warps' (m, l, acc) are combined in shared memory and the
+//   block writes its fp32 partial.
+// - G is a runtime row count under a compile-time maximum GM (1, 2, 4 or
+//   8): G 3 runs the GM 4 instance, G 5-7 the GM 8 one, with the rows past
+//   G skipped. Registers are sized by GM; 24 instances instead of the 48
+//   that one per G would take, and the rows a smaller G leaves idle cost
+//   no bytes, which set the time.
 // - Merge. A second small kernel combines each (slot, head)'s live splits
 //   in split order: m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i
 //   e^(m_i - m). A separate kernel rather than a last-block ticket: it
 //   keeps no counter state between calls and no fence/atomic protocol, and
 //   its ~0.7 MB of partials at the serving shape are still in L2. No float
 //   atomics anywhere, so two calls on the same inputs agree bit for bit.
-// Page size must be a multiple of 16; hd 64 or 128; G 1, 2, 4 or 8.
+// Page size must be a multiple of 16; hd 64, 128 or 256; G 1 to 8.
 
 #include <mutex>
 
@@ -57,6 +68,7 @@ constexpr int NT = 128;      // threads per block
 constexpr int NW = NT / 32;  // warps per block
 constexpr int SUB = 16;      // keys per warp step (a sub-tile)
 constexpr int kMaxDevices = 64;
+constexpr int kMaxSmem = 232448;  // bytes a block may opt in to (H100)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -104,39 +116,204 @@ __device__ __forceinline__ void load_floats(const T* p, float (&o)[N]) {
   }
 }
 
-// Two stages per warp when a block has more sub-tiles than warps, else one.
-__host__ __device__ __forceinline__ int n_stages(int pps, int page) {
-  return pps * page / SUB > NW ? 2 : 1;
+// N contiguous values of T at p as fp32, in loads of at most 16 bytes.
+template <typename T, int N>
+__device__ __forceinline__ void load_row(const T* p, float (&o)[N]) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T)) < N
+                        ? 16 / static_cast<int>(sizeof(T))
+                        : N;
+  static_assert(N % V == 0, "whole loads");
+#pragma unroll
+  for (int i = 0; i < N / V; ++i) {
+    float t[V];
+    load_floats<T, V>(p + i * V, t);
+#pragma unroll
+    for (int e = 0; e < V; ++e) o[i * V + e] = t[e];
+  }
 }
 
+// The split kernel's shape constants for storage type T and head dim HD.
 template <typename T, int HD>
-constexpr int kStageBytes = 2 * SUB * HD * static_cast<int>(sizeof(T));
+struct Shape {
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  // lanes per key in the score product, and q values a lane holds
+  static constexpr int LPK = HD / VEC < 32 ? HD / VEC : 32;
+  static constexpr int QV = HD / LPK;
+  static constexpr int KPI = 32 / LPK;  // keys per warp iteration
+  static constexpr int NI = SUB / KPI;  // iterations per sub-tile
+  static constexpr int DPL = HD / 32;   // P.V output columns per lane
+  static constexpr int TILE = SUB * HD;  // values of one K (or V) sub-tile
+  static constexpr int CHUNKS = TILE * static_cast<int>(sizeof(T)) / 16 / 32;
+  static constexpr int STAGE_BYTES = 2 * TILE * static_cast<int>(sizeof(T));
+  static constexpr int MAX_STAGES = NW * 2 * STAGE_BYTES <= kMaxSmem ? 2 : 1;
+  static_assert(LPK <= 32 && 32 % LPK == 0 && KPI <= SUB && CHUNKS >= 1,
+                "shape");
+};
 
-template <typename T, int HD, int G>
+// Two stages per warp when a block has more sub-tiles than warps (and two
+// fit), else one.
+template <typename T, int HD>
+int n_stages(int pps, int page) {
+  return pps * page / SUB > NW ? Shape<T, HD>::MAX_STAGES : 1;
+}
+
+template <typename T, int HD, int GM>
 constexpr int smem_bytes(int stages) {
-  const int tiles = NW * stages * kStageBytes<T, HD>;
-  const int combine = NW * G * (HD + 2) * 4;
+  const int tiles = NW * stages * Shape<T, HD>::STAGE_BYTES;
+  const int combine = NW * GM * (HD + 2) * 4;
   return tiles > combine ? tiles : combine;
 }
 
-template <typename T, int HD, int G>
+// One 16-key sub-tile of one warp: the scores of the GM rows, the online
+// softmax update of (m_w, l_w, acc), and acc += P V over the keys before
+// ctx (V past ctx may hold anything). Two layouts of the scores:
+//
+// tile_grouped keeps each key group's NI scores a row in its LPK lanes
+// (NI x GM registers a lane) and reduces max and sum over the KPI groups
+// only; it computes all GM rows (rows past G hold q = 0, harmlessly).
+template <typename T, int HD, int GM>
+__device__ __forceinline__ void tile_grouped(
+    const T* Ks, const T* Vs, const float (&qr)[GM][Shape<T, HD>::QV],
+    float (&m_w)[GM], float (&l_w)[GM],
+    float (&acc)[GM][Shape<T, HD>::DPL], int key0, int ctx, int lane) {
+  using Sh = Shape<T, HD>;
+  constexpr int LPK = Sh::LPK, QV = Sh::QV, KPI = Sh::KPI, NI = Sh::NI;
+  constexpr int DPL = Sh::DPL;
+  const int j = lane / LPK, c = lane % LPK;
+  // scores of key it*KPI + j for every row, in the lanes of group j
+  float sc[NI][GM];
+#pragma unroll
+  for (int it = 0; it < NI; ++it) {
+    float kf[QV];
+    load_row<T, QV>(Ks + (it * KPI + j) * HD + c * QV, kf);
+    const bool valid = key0 + it * KPI + j < ctx;
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float a = 0.f;
+#pragma unroll
+      for (int e = 0; e < QV; ++e) a = fmaf(qr[g][e], kf[e], a);
+      a = rtt::group_sum<LPK>(a);
+      sc[it][g] = valid ? a : rtt::kNegInf;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    float mx = m_w[g];
+#pragma unroll
+    for (int it = 0; it < NI; ++it) mx = fmaxf(mx, sc[it][g]);
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float alpha = expf(m_w[g] - mx);
+    m_w[g] = mx;
+    float rs = 0.f;
+#pragma unroll
+    for (int it = 0; it < NI; ++it) {
+      const bool valid = key0 + it * KPI + j < ctx;
+      const float p = valid ? expf(sc[it][g] - mx) : 0.f;
+      sc[it][g] = p;
+      rs += p;
+    }
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1)
+      rs += __shfl_xor_sync(0xffffffffu, rs, off);
+    l_w[g] = l_w[g] * alpha + rs;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[g][e] *= alpha;
+  }
+#pragma unroll
+  for (int it = 0; it < NI; ++it)
+#pragma unroll
+    for (int jj = 0; jj < KPI; ++jj) {
+      const int kk = it * KPI + jj;
+      if (key0 + kk >= ctx) continue;  // uniform across the warp
+      float vf[DPL];
+      load_row<T, DPL>(Vs + kk * HD + lane * DPL, vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float p = __shfl_sync(0xffffffffu, sc[it][g], jj * LPK);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+    }
+}
+
+// tile_spread hands key kk's score of every row to lane kk (GM registers
+// a lane whatever the head dim) and reduces max and sum over the warp; it
+// skips the rows past G. The instances whose grouped scores would take
+// more than 32 registers a lane (NI x GM > 32: GM 8 except bf16 at hd
+// 64, and GM 4 at fp32 hd 128 and at hd 256) use it.
+template <typename T, int HD, int GM>
+__device__ __forceinline__ void tile_spread(
+    const T* Ks, const T* Vs, const float (&qr)[GM][Shape<T, HD>::QV],
+    float (&m_w)[GM], float (&l_w)[GM],
+    float (&acc)[GM][Shape<T, HD>::DPL], int key0, int ctx, int G,
+    int lane) {
+  using Sh = Shape<T, HD>;
+  constexpr int LPK = Sh::LPK, QV = Sh::QV, KPI = Sh::KPI, NI = Sh::NI;
+  constexpr int DPL = Sh::DPL;
+  const int j = lane / LPK, c = lane % LPK;
+  float sc[GM];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) sc[g] = rtt::kNegInf;
+#pragma unroll
+  for (int it = 0; it < NI; ++it) {
+    float kf[QV];
+    load_row<T, QV>(Ks + (it * KPI + j) * HD + c * QV, kf);
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) continue;
+      float a = 0.f;
+#pragma unroll
+      for (int e = 0; e < QV; ++e) a = fmaf(qr[g][e], kf[e], a);
+      a = rtt::group_sum<LPK>(a);  // key it*KPI + j, in group j's lanes
+      if constexpr (KPI > 1)
+        a = __shfl_sync(0xffffffffu, a, (lane % KPI) * LPK);
+      if (lane / KPI == it) sc[g] = a;
+    }
+  }
+  const bool valid = lane < SUB && key0 + lane < ctx;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) continue;
+    const float mx =
+        fmaxf(m_w[g], rtt::group_max<32>(valid ? sc[g] : rtt::kNegInf));
+    const float alpha = expf(m_w[g] - mx);
+    m_w[g] = mx;
+    const float p = valid ? expf(sc[g] - mx) : 0.f;
+    sc[g] = p;
+    l_w[g] = l_w[g] * alpha + rtt::group_sum<32>(p);
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[g][e] *= alpha;
+  }
+#pragma unroll
+  for (int kk = 0; kk < SUB; ++kk) {
+    if (key0 + kk >= ctx) break;  // uniform across the warp
+    float vf[DPL];
+    load_row<T, DPL>(Vs + kk * HD + lane * DPL, vf);
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      if (g >= G) continue;
+      const float p = __shfl_sync(0xffffffffu, sc[g], kk);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+    }
+  }
+}
+
+template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(NT)
 paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp,
                    const int* __restrict__ block_table,
                    const int* __restrict__ ctx_len,
                    float* __restrict__ part_acc, float* __restrict__ part_m,
-                   float* __restrict__ part_l, int KVH, int page,
-                   int num_pages, int maxp, int pps, int n_split,
+                   float* __restrict__ part_l, int G, int KVH, int page,
+                   int num_pages, int maxp, int pps, int n_split, int stages,
                    float scale) {
-  constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // values per 16 B
-  constexpr int LPK = HD / VEC;  // lanes per key in the score product
-  constexpr int KPI = 32 / LPK;  // keys per warp iteration
-  constexpr int NI = SUB / KPI;  // iterations per sub-tile
-  constexpr int DPL = HD / 32;   // P.V output columns per lane
-  constexpr int TILE = SUB * HD;  // values of one K (or V) sub-tile
-  constexpr int CHUNKS = TILE * static_cast<int>(sizeof(T)) / 16 / 32;
-  static_assert(LPK <= 32 && 32 % LPK == 0 && CHUNKS >= 1, "shape");
+  using Sh = Shape<T, HD>;
+  constexpr int QV = Sh::QV, DPL = Sh::DPL, TILE = Sh::TILE;
+  constexpr int CHUNKS = Sh::CHUNKS;
 
   extern __shared__ __align__(16) uint8_t smem[];
   const int unit = blockIdx.x;  // slot * KVH + kv head
@@ -160,19 +337,24 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int key_end = min(ctx, min(p_begin + pps, n_pages) * page);
   const int n_sub = (key_end - key_begin + SUB - 1) / SUB;
 
-  // this lane's chunk of every query row, pre-scaled
-  const int j = lane / LPK, c = lane % LPK;
-  float qr[G][VEC];
+  // this lane's chunk of every query row, pre-scaled; rows past G are 0
+  const int c = lane % Sh::LPK;
+  float qr[GM][QV];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    load_floats<T, VEC>(q + (static_cast<long>(unit) * G + g) * HD + c * VEC,
-                        qr[g]);
+  for (int g = 0; g < GM; ++g) {
+    if (g < G) {
+      load_row<T, QV>(q + (static_cast<long>(unit) * G + g) * HD + c * QV,
+                      qr[g]);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[g][e] *= scale;
+      for (int e = 0; e < QV; ++e) qr[g][e] *= scale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < QV; ++e) qr[g][e] = 0.f;
+    }
   }
 
   // the warp's stage buffers: stage s holds K [SUB][HD] then V [SUB][HD]
-  const int stages = n_stages(pps, page);
+  const bool two = stages == 2;
   T* const wbuf = reinterpret_cast<T*>(smem) + warp * stages * 2 * TILE;
   auto issue = [&](int t, int s) {
     const int key0 = key_begin + t * SUB;
@@ -192,9 +374,9 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   };
 
-  float m_w[G], l_w[G], acc[G][DPL];
+  float m_w[GM], l_w[GM], acc[GM][DPL];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GM; ++g) {
     m_w[g] = rtt::kNegInf;
     l_w[g] = 0.f;
 #pragma unroll
@@ -203,107 +385,57 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   if (warp < n_sub) issue(warp, 0);
   cp_async_commit();
-  for (int t = warp, s = 0; t < n_sub; t += NW, s = stages == 2 ? s ^ 1 : 0) {
-    if (t + NW < n_sub) issue(t + NW, s ^ 1);
+  for (int t = warp, s = 0; t < n_sub; t += NW, s = two ? s ^ 1 : 0) {
+    const bool more = t + NW < n_sub;
+    if (two && more) issue(t + NW, s ^ 1);
     cp_async_commit();
-    cp_async_wait<1>();
+    if (two) {
+      cp_async_wait<1>();  // all but the copy just issued
+    } else {
+      cp_async_wait<0>();
+    }
     __syncwarp();
     const T* Ks = wbuf + s * 2 * TILE;
     const T* Vs = Ks + TILE;
     const int key0 = key_begin + t * SUB;
 
-    // scores of key it*KPI + j for every row, in the lanes of group j
-    float sc[NI][G];
-#pragma unroll
-    for (int it = 0; it < NI; ++it) {
-      float kf[VEC];
-      load_floats<T, VEC>(Ks + (it * KPI + j) * HD + c * VEC, kf);
-      const bool valid = key0 + it * KPI + j < ctx;
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float a = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) a = fmaf(qr[g][e], kf[e], a);
-#pragma unroll
-        for (int off = LPK / 2; off > 0; off >>= 1)
-          a += __shfl_xor_sync(0xffffffffu, a, off);
-        sc[it][g] = valid ? a : rtt::kNegInf;
-      }
-    }
-    // online softmax over the sub-tile, per row
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mx = m_w[g];
-#pragma unroll
-      for (int it = 0; it < NI; ++it) mx = fmaxf(mx, sc[it][g]);
-#pragma unroll
-      for (int off = LPK; off < 32; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = expf(m_w[g] - mx);
-      m_w[g] = mx;
-      float rs = 0.f;
-#pragma unroll
-      for (int it = 0; it < NI; ++it) {
-        const bool valid = key0 + it * KPI + j < ctx;
-        const float p = valid ? expf(sc[it][g] - mx) : 0.f;
-        sc[it][g] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = LPK; off < 32; off <<= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l_w[g] = l_w[g] * alpha + rs;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[g][e] *= alpha;
-    }
-    // acc += P V over the sub-tile's keys before ctx (V past ctx may hold
-    // anything)
-#pragma unroll
-    for (int it = 0; it < NI; ++it)
-#pragma unroll
-      for (int jj = 0; jj < KPI; ++jj) {
-        const int kk = it * KPI + jj;
-        if (key0 + kk >= ctx) continue;  // uniform across the warp
-        float vf[DPL];
-        load_floats<T, DPL>(Vs + kk * HD + lane * DPL, vf);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float p = __shfl_sync(0xffffffffu, sc[it][g], jj * LPK);
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
-        }
-      }
+    if constexpr (Sh::NI * GM > 32)
+      tile_spread<T, HD, GM>(Ks, Vs, qr, m_w, l_w, acc, key0, ctx, G, lane);
+    else
+      tile_grouped<T, HD, GM>(Ks, Vs, qr, m_w, l_w, acc, key0, ctx, lane);
     __syncwarp();  // every lane is done with stage s before it refills
+    if (!two && more) issue(t + NW, 0);
   }
   cp_async_wait<0>();
 
-  // combine the warps: [NW][G] m, [NW][G] l, [NW][G][HD] acc in fp32
+  // combine the warps: [NW][GM] m, [NW][GM] l, [NW][GM][HD] acc in fp32
   __syncthreads();
   float* wm = reinterpret_cast<float*>(smem);
-  float* wl = wm + NW * G;
-  float* wacc = wl + NW * G;
+  float* wl = wm + NW * GM;
+  float* wacc = wl + NW * GM;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GM; ++g) {
+    if (g >= G) continue;
     if (lane == 0) {
-      wm[warp * G + g] = m_w[g];
-      wl[warp * G + g] = l_w[g];
+      wm[warp * GM + g] = m_w[g];
+      wl[warp * GM + g] = l_w[g];
     }
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      wacc[(warp * G + g) * HD + lane * DPL + e] = acc[g][e];
+      wacc[(warp * GM + g) * HD + lane * DPL + e] = acc[g][e];
   }
   __syncthreads();
   for (int e = threadIdx.x; e < G * HD; e += NT) {
     const int g = e / HD;
     float m = wm[g];
 #pragma unroll
-    for (int w = 1; w < NW; ++w) m = fmaxf(m, wm[w * G + g]);
+    for (int w = 1; w < NW; ++w) m = fmaxf(m, wm[w * GM + g]);
     float a = 0.f, l = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const float f = expf(wm[w * G + g] - m);
-      a = fmaf(wacc[w * G * HD + e], f, a);
-      l = fmaf(wl[w * G + g], f, l);
+      const float f = expf(wm[w * GM + g] - m);
+      a = fmaf(wacc[(w * GM + g) * HD + e % HD], f, a);
+      l = fmaf(wl[w * GM + g], f, l);
     }
     part_acc[prow * HD + e] = a;
     if (e % HD == 0) {
@@ -348,7 +480,7 @@ paged_merge_kernel(const float* __restrict__ part_acc,
 
 // Allow the split kernel its dynamic shared memory (above 48 KB), once per
 // instantiation and device rather than on every call.
-template <typename T, int HD, int G>
+template <typename T, int HD, int GM>
 cudaError_t allow_smem() {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
@@ -357,74 +489,54 @@ cudaError_t allow_smem() {
   if (err != cudaSuccess) return err;
   std::lock_guard<std::mutex> hold(mu);
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(paged_split_kernel<T, HD, G>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<T, HD, G>(2));
+  err = cudaFuncSetAttribute(
+      paged_split_kernel<T, HD, GM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T, HD, GM>(Shape<T, HD>::MAX_STAGES));
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
-template <typename T, int HD, int G>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* bt, const void* ctx, void* part_acc,
-                   void* part_m, void* part_l, int S, int KVH, int page,
-                   int num_pages, int maxp, int pps, int n_split,
-                   float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem<T, HD, G>();
+struct Args {
+  const void *q, *kp, *vp, *bt, *ctx;
+  void *part_acc, *part_m, *part_l;
+  int S, KVH, G, page, num_pages, maxp, pps, n_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int GM>
+cudaError_t launch(const Args& a) {
+  cudaError_t err = allow_smem<T, HD, GM>();
   if (err != cudaSuccess) return err;
-  const int smem = smem_bytes<T, HD, G>(n_stages(pps, page));
-  dim3 grid(S * KVH, n_split);
-  paged_split_kernel<T, HD, G><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(bt),
-      static_cast<const int*>(ctx), static_cast<float*>(part_acc),
-      static_cast<float*>(part_m), static_cast<float*>(part_l), KVH, page,
-      num_pages, maxp, pps, n_split, scale);
+  const int stages = n_stages<T, HD>(a.pps, a.page);
+  const int smem = smem_bytes<T, HD, GM>(stages);
+  dim3 grid(a.S * a.KVH, a.n_split);
+  paged_split_kernel<T, HD, GM><<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
+      static_cast<const T*>(a.vp), static_cast<const int*>(a.bt),
+      static_cast<const int*>(a.ctx), static_cast<float*>(a.part_acc),
+      static_cast<float*>(a.part_m), static_cast<float*>(a.part_l), a.G,
+      a.KVH, a.page, a.num_pages, a.maxp, a.pps, a.n_split, stages,
+      a.scale);
   return cudaGetLastError();
 }
 
+// G rows run the instance of the smallest row maximum GM >= G.
 template <typename T, int HD>
-cudaError_t launch_g(int G, const void* q, const void* kp, const void* vp,
-                     const void* bt, const void* ctx, void* part_acc,
-                     void* part_m, void* part_l, int S, int KVH, int page,
-                     int num_pages, int maxp, int pps, int n_split,
-                     float scale, cudaStream_t st) {
-  switch (G) {
-    case 1:
-      return launch<T, HD, 1>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
-                              S, KVH, page, num_pages, maxp, pps, n_split,
-                              scale, st);
-    case 2:
-      return launch<T, HD, 2>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
-                              S, KVH, page, num_pages, maxp, pps, n_split,
-                              scale, st);
-    case 4:
-      return launch<T, HD, 4>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
-                              S, KVH, page, num_pages, maxp, pps, n_split,
-                              scale, st);
-    case 8:
-      return launch<T, HD, 8>(q, kp, vp, bt, ctx, part_acc, part_m, part_l,
-                              S, KVH, page, num_pages, maxp, pps, n_split,
-                              scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t launch_g(const Args& a) {
+  if (a.G <= 1) return launch<T, HD, 1>(a);
+  if (a.G <= 2) return launch<T, HD, 2>(a);
+  if (a.G <= 4) return launch<T, HD, 4>(a);
+  if (a.G <= 8) return launch<T, HD, 8>(a);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t launch_hd(int hd, int G, const void* q, const void* kp,
-                      const void* vp, const void* bt, const void* ctx,
-                      void* part_acc, void* part_m, void* part_l, int S,
-                      int KVH, int page, int num_pages, int maxp, int pps,
-                      int n_split, float scale, cudaStream_t st) {
-  if (hd == 64)
-    return launch_g<T, 64>(G, q, kp, vp, bt, ctx, part_acc, part_m, part_l,
-                           S, KVH, page, num_pages, maxp, pps, n_split,
-                           scale, st);
-  if (hd == 128)
-    return launch_g<T, 128>(G, q, kp, vp, bt, ctx, part_acc, part_m, part_l,
-                            S, KVH, page, num_pages, maxp, pps, n_split,
-                            scale, st);
+cudaError_t launch_hd(int hd, const Args& a) {
+  if (hd == 64) return launch_g<T, 64>(a);
+  if (hd == 128) return launch_g<T, 128>(a);
+  if (hd == 256) return launch_g<T, 256>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -439,19 +551,18 @@ extern "C" int rtt_paged_attention(const void* q, const void* kp,
                                    int S, int KVH, int G, int hd, int page,
                                    int num_pages, int maxp, int pps,
                                    int n_split, float scale, void* stream) {
-  if (S <= 0 || KVH <= 0 || G <= 0 || page <= 0 || page % SUB != 0 ||
-      num_pages <= 0 || maxp <= 0 || pps <= 0 ||
+  if (S <= 0 || KVH <= 0 || G <= 0 || G > 8 || page <= 0 ||
+      page % SUB != 0 || num_pages <= 0 || maxp <= 0 || pps <= 0 ||
       n_split != (maxp + pps - 1) / pps || n_split > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q,       kp,     vp,   block_table, ctx_len,
+               part_acc, part_m, part_l, S,        KVH,
+               G,       page,   num_pages, maxp,   pps,
+               n_split, scale,  static_cast<cudaStream_t>(stream)};
   if (dtype == rtt::kFloat32)
-    return static_cast<int>(launch_hd<float>(
-        hd, G, q, kp, vp, block_table, ctx_len, part_acc, part_m, part_l, S,
-        KVH, page, num_pages, maxp, pps, n_split, scale, st));
+    return static_cast<int>(launch_hd<float>(hd, a));
   if (dtype == rtt::kBFloat16)
-    return static_cast<int>(launch_hd<__nv_bfloat16>(
-        hd, G, q, kp, vp, block_table, ctx_len, part_acc, part_m, part_l, S,
-        KVH, page, num_pages, maxp, pps, n_split, scale, st));
+    return static_cast<int>(launch_hd<__nv_bfloat16>(hd, a));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

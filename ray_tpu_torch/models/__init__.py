@@ -1,2 +1,3 @@
-"""Llama-family inference: the model, its dense-slot decode path, its
-paged-KV decode path, and the numpy parameter converter."""
+"""The models: the Llama family (its dense-slot and paged-KV decode
+paths too), GPT-2 and Mixtral, the HF checkpoint loaders of all five
+families, and the numpy parameter converter."""

@@ -4,9 +4,11 @@
 dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``)
 and returns the port's params: the same keys and shapes as tensors on
 ``device`` (by default the CUDA card, as every entry point of the port;
-pass ``"cpu"`` for the host). Int8 weight-only leaves ``{"q": int8, "s":
-float}`` keep their structure; ``q`` stays int8. ``params_to_numpy`` is
-the inverse.
+pass ``"cpu"`` for the host). Any nesting and any rank: the Llama,
+GPT-2 and Mixtral trees (whose expert stacks are 4-D, ``[L, E, in,
+out]``) and the HF loaders' trees (``models/hf_weights.py``). Int8
+weight-only leaves ``{"q": int8, "s": float}`` keep their structure;
+``q`` stays int8. ``params_to_numpy`` is the inverse.
 """
 
 from __future__ import annotations

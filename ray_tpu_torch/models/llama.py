@@ -156,6 +156,20 @@ class LlamaConfig:
         return replace(cfg, **kw)
 
 
+def trunc_normal_init(gen: torch.Generator, shape, fan_in: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Truncated-normal (+-3 sigma) weights scaled by 1/sqrt(fan_in), in
+    ``dtype`` on the generator's device. Stacks (3-D and up) are drawn
+    in fp32 one layer at a time, so the 8B stacks never need an fp32
+    copy of the whole stack."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for part in (out if len(shape) >= 3 else [out]):
+        buf = torch.empty(part.shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(buf, 0.0, 1.0, -3.0, 3.0, generator=gen)
+        part.copy_(buf.mul_(1.0 / math.sqrt(fan_in)))
+    return out
+
+
 def init_params(cfg: LlamaConfig, seed: int = 0,
                 device=None) -> Dict[str, Any]:
     """Truncated-normal (+-3 sigma) fan-in-scaled weights in
@@ -171,15 +185,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
 
     def norm_init(shape, fan_in):
-        out = torch.empty(shape, dtype=cfg.param_dtype, device=device)
-        # drawn in fp32 one layer at a time: the 8B stacks never need an
-        # fp32 copy of the whole stack
-        for part in (out if len(shape) == 3 else [out]):
-            buf = torch.empty(part.shape, dtype=torch.float32, device=device)
-            torch.nn.init.trunc_normal_(buf, 0.0, 1.0, -3.0, 3.0,
-                                        generator=gen)
-            part.copy_(buf.mul_(1.0 / math.sqrt(fan_in)))
-        return out
+        return trunc_normal_init(gen, shape, fan_in, cfg.param_dtype)
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.param_dtype, device=device)
@@ -253,15 +259,29 @@ def _qkv(cfg: LlamaConfig, h1, p, cos, sin):
     return q, k, v.reshape(b, s, cfg.num_kv_heads, hd)
 
 
-def _attn_mlp(cfg: LlamaConfig, x, q, k, v, p):
-    """The layer from attention on: x + wo(attend(q, k, v)), then the
-    pre-norm MLP with its residual."""
+def _attn_out(cfg: LlamaConfig, x, q, k, v, p):
+    """x + wo(attend(q, k, v)): the attention sub-block's residual."""
     b, s, _ = x.shape
     attn = _attend(cfg, q, k, v).reshape(b, s, cfg.num_heads * cfg.head_dim_)
-    x = x + torch.matmul(attn, p["wo"].to(cfg.dtype))
+    return x + torch.matmul(attn, p["wo"].to(cfg.dtype))
+
+
+def _attn_mlp(cfg: LlamaConfig, x, q, k, v, p):
+    """The layer from attention on: ``_attn_out``, then the pre-norm MLP
+    with its residual."""
+    x = _attn_out(cfg, x, q, k, v, p)
     h2 = rms_norm(x, p["mlp_norm"], cfg.rms_norm_eps)
     return x + swiglu(h2, p["w_gate"].to(cfg.dtype), p["w_up"].to(cfg.dtype),
                       p["w_down"].to(cfg.dtype), act=cfg.mlp_act)
+
+
+def attention_block(cfg: LlamaConfig, x, p, cos, sin):
+    """Pre-norm attention sub-block with its residual, x + wo(attend(
+    qkv)), the optional ``bq``/``bk``/``bv`` included: the part of a
+    layer every model of the family shares (Mixtral puts its MoE after
+    it). Counterpart of the reference's ``attention_block``."""
+    h1 = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+    return _attn_out(cfg, x, *_qkv(cfg, h1, p, cos, sin), p)
 
 
 def _layer(cfg: LlamaConfig, x, p, cos, sin):

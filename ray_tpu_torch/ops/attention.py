@@ -12,12 +12,15 @@ tensor the kernels cannot take raises.
   logsumexp.
 
 ``flash_route`` picks the kernels from the inputs' device, dtype and
-head dim: bf16 on the card takes the Hopper kernels that run wgmma on
-bf16 tiles fed by TMA (``csrc/flash_fwd_sm90.cu``,
-``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``); fp32 on
-the card takes the scalar kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``), which hold fp32 to 1e-4 where a wgmma on fp32
-inputs would be TF32.
+head dim: bf16 at head dim 64 or 128 on the card takes the Hopper
+kernels that run wgmma on bf16 tiles fed by TMA
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``,
+``csrc/flash_bwd_dkv_sm90.cu``); fp32 on the card takes the scalar
+kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which hold fp32
+to 1e-4 where a wgmma on fp32 inputs would be TF32. Head dim 256
+(Gemma) takes the scalar kernels in both dtypes, bf16 as storage with
+fp32 arithmetic: the simple kernels, far from their bound, until a
+wgmma design covers it.
 
 ``flash_attention`` is the ``torch.autograd.Function`` over the two, the
 counterpart of the reference's ``custom_vjp``.
@@ -120,24 +123,25 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def flash_route(dtype: torch.dtype, head_dim: int, device) -> str:
     """Which flash kernels take inputs of this dtype, head dim and device:
     ``"sm90"`` (bf16 on the card, head_dim 64 or 128: the wgmma kernels
-    of the forward, dQ and dK/dV), ``"scalar"`` (fp32 on the card,
-    head_dim 64 or 128: the scalar kernels), ``"plain"`` (the
-    CPU: the plain PyTorch versions, any dtype and head dim). Anything
-    else raises ``ValueError``: there is no fallback."""
+    of the forward, dQ and dK/dV), ``"scalar"`` (on the card, fp32 at
+    head_dim 64, 128 or 256 and bf16 at head_dim 256: the scalar kernels,
+    fp32 arithmetic), ``"plain"`` (the CPU: the plain PyTorch versions,
+    any dtype and head dim). Anything else raises ``ValueError``: there
+    is no fallback."""
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise ValueError(f"flash attention: unsupported device {device}")
-    if head_dim not in (64, 128):
+    if head_dim not in (64, 128, 256):
         raise ValueError(f"flash attention: head_dim {head_dim} not "
-                         "supported on the card (64 or 128)")
-    if dtype == torch.bfloat16:
+                         "supported on the card (64, 128 or 256)")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash attention: dtype {dtype} not supported on "
+                         "the card (float32 or bfloat16)")
+    if dtype == torch.bfloat16 and head_dim != 256:
         return "sm90"
-    if dtype == torch.float32:
-        return "scalar"
-    raise ValueError(f"flash attention: dtype {dtype} not supported on the "
-                     "card (float32 or bfloat16)")
+    return "scalar"
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -158,8 +162,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel 1's wrapper: (O [b, sq, H, d] in q's dtype, lse f32
     [b*H, sq]). The route is ``flash_route``'s: CPU tensors take
     ``flash_forward_plain``; CUDA tensors (contiguous) launch
-    ``csrc/flash_fwd_sm90.cu`` (bf16) or ``csrc/flash_fwd.cu`` (fp32) on
-    the current stream, or raise."""
+    ``csrc/flash_fwd_sm90.cu`` (route ``"sm90"``) or ``csrc/flash_fwd.cu``
+    (route ``"scalar"``) on the current stream, or raise."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape
@@ -179,13 +183,16 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load()
     out = torch.empty_like(q)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
-    entry = (lib.rtt_flash_fwd_sm90 if route == "sm90"
-             else lib.rtt_flash_fwd)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
+    args = (b, sq, sk, h, kvh, d, int(bool(causal)), float(sm_scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), b, sq, sk, h, kvh, d, int(bool(causal)),
-                    float(sm_scale), stream)
+        if route == "sm90":
+            err = lib.rtt_flash_fwd_sm90(*ptrs, *args, stream)
+        else:
+            err = lib.rtt_flash_fwd(*ptrs, _DTYPE_CODES[q.dtype], *args,
+                                    stream)
     _build.check(lib, err, f"flash_forward {route} kernel")
     flash_forward.launches += 1
     if route == "sm90":
@@ -194,6 +201,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # kernel launches, for chip_smoke.py: all routes, and the bf16 wgmma route
+# (the scalar route's are the difference)
 flash_forward.launches = 0
 flash_forward.sm90_launches = 0
 
@@ -241,8 +249,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cotangent ``do``. The route is ``flash_route``'s: CPU tensors take
     ``flash_backward_plain``; CUDA tensors (contiguous) launch the dQ
     and dK/dV kernels of ``csrc/flash_bwd_dq_sm90.cu`` and
-    ``csrc/flash_bwd_dkv_sm90.cu`` (bf16) or of ``csrc/flash_bwd.cu``
-    (fp32) on the current stream, or raise. ``delta = rowsum(dO * O)`` is
+    ``csrc/flash_bwd_dkv_sm90.cu`` (route ``"sm90"``) or of
+    ``csrc/flash_bwd.cu`` (route ``"scalar"``) on the current stream, or
+    raise. ``delta = rowsum(dO * O)`` is
     computed here with torch ops, as XLA computes it outside the Pallas
     kernels."""
     if sm_scale is None:
@@ -277,6 +286,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     args = (b, sq, sk, h, kvh, d, int(bool(causal)), float(sm_scale))
     sm90 = route == "sm90"
+    if not sm90:     # the scalar entries take the dtype first
+        args = (_DTYPE_CODES[q.dtype], *args)
     dq_entry = lib.rtt_flash_bwd_dq_sm90 if sm90 else lib.rtt_flash_bwd_dq
     dkv_entry = lib.rtt_flash_bwd_dkv_sm90 if sm90 else lib.rtt_flash_bwd_dkv
     with torch.cuda.device(q.device):

@@ -27,10 +27,11 @@ import torch
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# what the kernel is built for: head dims, query rows per kv head, and the
-# page size's granule (its 16-key sub-tiles)
-_KERNEL_HEAD_DIMS = (64, 128)
-_KERNEL_GROUPS = (1, 2, 4, 8)
+# what the kernel is built for: head dims, query rows per kv head (a
+# runtime count under row maxima 1, 2, 4 and 8), and the page size's
+# granule (its 16-key sub-tiles)
+_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_MAX_GROUP = 8
 _KERNEL_PAGE_MULTIPLE = 16
 # blocks the split pass aims at: ~8 per SM of an H100's 132, so that
 # enough pages are in flight to keep the memory busy
@@ -97,13 +98,14 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 def check_kernel_shape(head_dim: int, group: int, page: int) -> None:
     """Raise ``ValueError`` unless the kernel is built for this head dim,
     number of query rows per kv head and page size."""
-    if (head_dim not in _KERNEL_HEAD_DIMS or group not in _KERNEL_GROUPS
+    if (head_dim not in _KERNEL_HEAD_DIMS
+            or not 1 <= group <= _KERNEL_MAX_GROUP
             or page % _KERNEL_PAGE_MULTIPLE):
         raise ValueError(
             f"paged_attention: head_dim {head_dim}, {group} query rows per "
             f"kv head and page {page} not supported on the card (head_dim "
-            f"{_KERNEL_HEAD_DIMS}, rows {_KERNEL_GROUPS}, page a multiple "
-            f"of {_KERNEL_PAGE_MULTIPLE})")
+            f"{_KERNEL_HEAD_DIMS}, rows 1 to {_KERNEL_MAX_GROUP}, page a "
+            f"multiple of {_KERNEL_PAGE_MULTIPLE})")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -113,7 +115,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 2's wrapper; shapes and result as
     ``paged_attention_reference``. On CUDA the block table and ctx_len
-    are int32, head_dim is 64 or 128, G is 1, 2, 4 or 8 and the page size
+    are int32, head_dim is 64, 128 or 256, G is 1 to 8 and the page size
     a multiple of 16; the kernel reads only entries of pages <
     ceil(ctx/page), and clamps those as ``clamp_page_ids`` does. Two
     launches on the current stream: the split pass into fp32 partials,

@@ -68,10 +68,13 @@ class _HostCopy:
 class LLMEngine:
     """Continuous-batched generation on the Llama family (tiny to 8B).
 
-    Beyond the reference's keywords: ``params`` serves given weights
-    (converted from ``ray_tpu`` or shared between engines) instead of
-    ``init_params(cfg, seed=0)``; ``device`` defaults to the CUDA card
-    and raises without one (pass ``"cpu"`` to run on the host).
+    ``model_config={"hf_model": path}`` serves an HF checkpoint of the
+    llama, qwen2 or gemma family (``models/hf_weights.py``; loading a
+    path needs ``transformers``); its other keys override the loaded
+    config. Beyond the reference's keywords: ``params`` serves given
+    weights (converted from ``ray_tpu`` or shared between engines)
+    instead of ``init_params(cfg, seed=0)``; ``device`` defaults to the
+    CUDA card and raises without one (pass ``"cpu"`` to run on the host).
     """
 
     def __init__(self, model_config: Optional[dict] = None,
@@ -83,10 +86,7 @@ class LLMEngine:
                  sampling_seed: int = 0, pipeline_depth: int = 2,
                  params: Optional[Dict[str, Any]] = None, device=None):
         cfg_kw = dict(model_config or {})
-        if cfg_kw.pop("hf_model", None) is not None:
-            raise NotImplementedError(
-                "hf_model: the HF checkpoint loader is not ported yet; "
-                "pass params= (see ray_tpu_torch.models.convert)")
+        hf_model = cfg_kw.pop("hf_model", None)
         if tp > 1 or mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1 or a mesh) is not ported "
@@ -94,7 +94,26 @@ class LLMEngine:
         preset = cfg_kw.pop("preset", "tiny")
         quantize = cfg_kw.pop("quantize", None)
         self._device = llama.resolve_device(device)
-        cfg = getattr(llama.LlamaConfig, preset)(**cfg_kw)
+        if hf_model is not None:
+            if params is not None:
+                raise ValueError("pass hf_model or params=, not both")
+            from dataclasses import replace
+
+            from ray_tpu_torch.models.hf_weights import (from_hf,
+                                                         hf_model_type)
+
+            # refuse before from_hf materialises the checkpoint
+            mt = hf_model_type(hf_model)
+            if mt not in ("llama", "qwen2", "gemma"):
+                raise ValueError(
+                    "the continuous-batching engine serves llama-family "
+                    f"dense checkpoints (llama/qwen2/gemma); got {mt!r}")
+            cfg, params = from_hf(hf_model,
+                                  dtype=cfg_kw.pop("param_dtype", None),
+                                  device=self._device)
+            cfg = replace(cfg, **cfg_kw)
+        else:
+            cfg = getattr(llama.LlamaConfig, preset)(**cfg_kw)
         self._cfg = cfg
         self._params = (params if params is not None else
                         llama.init_params(cfg, 0, self._device))

@@ -6,7 +6,8 @@ on the CPU.
   (pointers as ``c_void_p``): a mismatch would cut a pointer silently on
   the card.
 - ``flash_route`` sends each (dtype, head dim, device) to the wgmma
-  kernels, the scalar kernels, the plain versions, or a ``ValueError``.
+  kernels, the scalar kernels (fp32, and bf16 at head dim 256), the
+  plain versions, or a ``ValueError``.
 - The bf16 forward, dQ and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
   ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``)
   emulated in plain torch: fp32 products of bf16 inputs, the scale
@@ -96,8 +97,11 @@ _ROUTES = [
     (torch.float16, 96, "cpu", "plain"),
     (torch.float16, 128, "cuda", None),
     (torch.bfloat16, 96, "cuda", None),
-    (torch.float32, 256, "cuda", None),
+    (torch.float32, 256, "cuda", "scalar"),
     (torch.bfloat16, 128, "meta", None),
+    (torch.bfloat16, 256, "cuda", "scalar"),
+    (torch.float32, 96, "cuda", None),
+    (torch.bfloat16, 512, "cuda", None),
 ]
 
 
@@ -372,7 +376,9 @@ def test_split_pages_covers_the_table(slots, kv_heads, maxp, want):
 
 @pytest.mark.parametrize("hd,group,page,ok", [
     (128, 4, 64, True), (64, 1, 16, True), (128, 8, 32, True),
-    (96, 4, 64, False), (128, 3, 64, False), (128, 4, 8, False),
+    (96, 4, 64, False), (128, 3, 64, True), (128, 4, 8, False),
+    (128, 7, 64, True), (256, 1, 64, True), (256, 8, 64, True),
+    (128, 9, 64, False), (256, 4, 8, False),
 ])
 def test_paged_kernel_shapes(hd, group, page, ok):
     """On the card the wrapper raises before any launch for a head dim,
