@@ -7,8 +7,9 @@ Phases, each printing what it finds; any failure exits non-zero:
 
 0. the card's name and power limit; build the CUDA kernels from
    ray_tpu_torch/csrc (timed), with ptxas's registers and spills; the
-   three wgmma kernels (the bf16 flash forward, dQ and dK/dV) must
-   contain HGMMA instructions in the built library's SASS (cuobjdump).
+   five wgmma kernels (the bf16 flash forward, dQ and dK/dV at d 64/128,
+   the forward and dK/dV at d 256) must contain HGMMA instructions in the
+   built library's SASS (cuobjdump), and the two d-256 ones no spill.
 1. each kernel against its plain PyTorch version on the card: the flash
    forward at the serving shapes, s 2048 and the training shape (b 4,
    s 2048, bf16), the flash backward (dQ and dK/dV) at b 1/4, s
@@ -27,6 +28,15 @@ Phases, each printing what it finds; any failure exits non-zero:
    dQ/dK/dV pair), with the least time the card could take. The backward
    is timed at the training shape, the paged wrapper (its split and
    merge launches) at the decode shape.
+   Phase 1 also holds the paged kernel at the published shapes that
+   Qwen2 and Gemma give it (G 7 under the row maximum 8 at hd 128 and
+   64, G 1 and G 8 at hd 256; fp32 and bf16; the old contexts and a 64-page
+   table; timed at the decode shape), the flash forward, dQ and dK/dV at
+   head dim 256 (16/16 heads; bf16 forward and dK/dV on the wgmma route,
+   the bf16 dQ and every fp32 launch on the scalar route; timed at b 8 x
+   s 512 and, the backward, b 2 x s 2048), and the head dims 16 and 32 of
+   the tiny presets (the scalar flash kernels, fp32 and bf16, and the
+   paged kernel under every row maximum).
 2. fp32, 2 layers, at full Llama-3-8B, Qwen2-7B and Gemma-7B width: the
    dense engine (flash prefill) and the paged engine (paged decode) give
    identical greedy transcripts, which agree with a cache-free forward
@@ -36,12 +46,6 @@ Phases, each printing what it finds; any failure exits non-zero:
    each answer 8 requests with 32 tokens; the launch counters show
    their kernels ran, every flash launch on the wgmma route; TTFT and
    ITL medians.
-   Phase 1 also holds the paged kernel at the published shapes that
-   Qwen2 and Gemma give it (G 7 under the row maximum 8 at hd 128 and
-   64, G 1 and G 8 at hd 256; fp32 and bf16; the old contexts and a 64-page
-   table; timed at the decode shape) and the flash forward, dQ and dK/dV
-   at head dim 256 on the scalar route (16/16 heads; timed at b 8 x s
-   512 and, the backward, b 2 x s 2048).
 4. fp32, 2 layers, batch 2 x seq 256, at full Llama-3-8B width and then
    full Gemma-7B width (head dim 256, the scalar backward): the loss and
    every gradient leaf through the flash kernels match the reference
@@ -58,17 +62,27 @@ Phases, each printing what it finds; any failure exits non-zero:
    ``llama_config_from_hf`` on their published config.json values, bf16
    random weights from seed 0, 28 layers each) through the dense and
    then the paged engine with phase 3's requests: the flash forward
-   launches once a layer a prefill batch (the wgmma route at Qwen2's
-   head dim 128, the scalar one at Gemma's 256), the paged kernel once a
-   layer a decode step; TTFT and ITL medians.
-7. training GPT-2 125M whole (batch 8 x 1024) and Mixtral-8x7B width cut
-   to 2 layers (batch 4 x 2048), 5 AdamW steps each: losses fall, every
-   layer's forward, dQ and dK/dV run on the wgmma route; step time,
-   tokens/s, MFU, peak memory.
+   launches once a layer a prefill batch, on the wgmma route (head dim
+   128 and 256), the paged kernel once a layer a decode step; TTFT and
+   ITL medians.
+7. training GPT-2 125M whole (batch 8 x 1024), Mixtral-8x7B width cut
+   to 2 layers (batch 4 x 2048) and Gemma-7B width cut to 4 layers
+   (batch 2 x 2048), 5 AdamW steps each: losses fall, every layer's
+   forward, dQ and dK/dV run on their routes (all wgmma but Gemma's dQ,
+   which is scalar at head dim 256); step time, tokens/s, MFU, peak
+   memory.
+8. the tiny presets on the card (head dim 16): ``LLMEngine()`` and
+   ``PagedLLMEngine()`` with their defaults (Llama tiny, fp32) answer
+   prompts that pad to the 128 bucket with the same greedy transcripts,
+   which agree with a cache-free forward; ``loss_fn`` and its backward
+   on the Llama, GPT-2 and Mixtral tiny presets through the kernels
+   match the reference attention's gradients (1e-4 of each leaf's max).
+   The counters show the d-16 flash and hd-16 paged kernels ran.
 
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
-3 and 6, of the backward kernels from phases 5 and 4's Gemma run);
+3 and 6, of the backward kernels from phases 5 and 7's Gemma run, of
+the fp32 d-256 scalar kernels from phase 4's Gemma run);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -212,9 +226,15 @@ def close(got: torch.Tensor, want: torch.Tensor, atol: float,
 
 # ---------------------------------------------------------------- phase 0
 
-# the wgmma kernels: their SASS must hold HGMMA (warpgroup MMA) instructions
-WGMMA_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
-                 "flash_bwd_dkv_sm90_kernel")
+# the wgmma kernels and their instances (d 64 and 128, or d 256 alone):
+# their SASS must hold HGMMA (warpgroup MMA) instructions
+WGMMA_KERNELS = {"flash_fwd_sm90_kernel": 2, "flash_bwd_dq_sm90_kernel": 2,
+                 "flash_bwd_dkv_sm90_kernel": 2,
+                 "flash_fwd_sm90_d256_kernel": 1,
+                 "flash_bwd_dkv_sm90_d256_kernel": 1}
+# the kernels that must build without a spill
+NO_SPILL_KERNELS = ("flash_fwd_sm90_d256_kernel",
+                    "flash_bwd_dkv_sm90_d256_kernel")
 
 
 def ptxas_usage(log: str) -> dict:
@@ -264,17 +284,24 @@ def build_phase() -> None:
     log_path = _build.BUILD_DIR / "build.log"
     if log_path.exists():
         log = log_path.read_text()
-        for name, (regs, st, ld) in ptxas_usage(log).items():
+        usage = ptxas_usage(log)
+        for name, (regs, st, ld) in usage.items():
             print(f"  ptxas: {name}: {regs} registers, spill stores {st} "
                   f"bytes, spill loads {ld} bytes", flush=True)
         for line in log.splitlines():
             if "warning" in line.lower():
                 print(f"  ptxas: {line.strip()}", flush=True)
+        for kernel in NO_SPILL_KERNELS:
+            found = {n: u for n, u in usage.items() if kernel in n}
+            check(len(found) == 1 and all(u[1] == u[2] == 0
+                                          for u in found.values()),
+                  f"{kernel}: want one instance without spills, ptxas "
+                  f"reported {found}")
     hgmma = sass_hgmma_counts(_build.library_path())
-    for kernel in WGMMA_KERNELS:
+    for kernel, want in WGMMA_KERNELS.items():
         found = {n: c for n, c in hgmma.items() if kernel in n}
-        check(len(found) == 2, f"{kernel}: want its d 64 and d 128 "
-              f"instances in the SASS, found {sorted(found)}")
+        check(len(found) == want, f"{kernel}: want {want} instance(s) in "
+              f"the SASS, found {sorted(found)}")
         for n, c in sorted(found.items()):
             print(f"  sass: {n}: {c} HGMMA instructions", flush=True)
             check(c > 0, f"{n} has no HGMMA instruction")
@@ -682,10 +709,13 @@ def paged_families_phase(dev, ctx_main) -> list:
 
 def flash_d256_phase(dev) -> list:
     """The flash forward, dQ and dK/dV at head dim 256 (Gemma's), fp32 and
-    bf16, 16/16 heads: every launch on the scalar route, each against its
-    plain version, with masks on ragged lengths and sq < sk; timed at the
-    Gemma serving prefill (b 8 x s 512) and, for the backward, at b 2 x s
-    2048, beside scaled_dot_product_attention and its backward."""
+    bf16, 16/16 heads, each against its plain version, with masks on
+    ragged lengths and sq < sk: the bf16 forward and dK/dV on the wgmma
+    route, the bf16 dQ and every fp32 launch on the scalar route. Timed
+    at the Gemma serving prefill (b 8 x s 512) and, for the backward, at
+    b 2 x s 2048, beside scaled_dot_product_attention and its backward:
+    the wgmma forward and dK/dV and the scalar dQ in bf16, the scalar
+    forward and dK/dV in fp32."""
     from ray_tpu_torch.ops.attention import (flash_backward,
                                              flash_backward_plain,
                                              flash_forward,
@@ -700,10 +730,11 @@ def flash_d256_phase(dev) -> list:
         return [torch.randn(b, n, H, D, generator=g, device=dev).to(dt)
                 for n in (sq, sk, sk, sq)]
 
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst = {(k, dt): 0.0 for k in ("fwd", "dq", "dkv")
+             for dt in (torch.float32, torch.bfloat16)}
     dts = (torch.float32, torch.bfloat16)
     before = counters()
-    n_calls = 0
+    n_calls = {dt: 0 for dt in dts}
     for b, sq, sk, causal in ((8, 512, 512, True), (1, 100, 100, True),
                               (2, 128, 300, True), (1, 512, 512, False),
                               (2, 2048, 2048, True)):
@@ -716,7 +747,7 @@ def flash_d256_phase(dev) -> list:
             want = flash_backward_plain(q.float(), k.float(), v.float(),
                                         o.float(), lse, do.float(), causal)
             torch.cuda.synchronize()
-            n_calls += 1
+            n_calls[dt] += 1
             fp32 = dt == torch.float32
             tol_f = (1e-4, 0.0) if fp32 else (2e-2, 2e-2)
             tol_b = (1e-4, 1e-4) if fp32 else (2e-2, 2e-2)
@@ -730,22 +761,26 @@ def flash_d256_phase(dev) -> list:
             check(all(ok for ok, _ in res), f"d-256 flash kernels disagree "
                   f"with their plain versions (b={b} sq={sq} sk={sk} "
                   f"causal={causal} {dt})")
-            worst["fwd"] = max(worst["fwd"], res[0][1], res[1][1])
-            worst["dq"] = max(worst["dq"], res[2][1])
-            worst["dkv"] = max(worst["dkv"], res[3][1], res[4][1])
+            worst["fwd", dt] = max(worst["fwd", dt], res[0][1], res[1][1])
+            worst["dq", dt] = max(worst["dq", dt], res[2][1])
+            worst["dkv", dt] = max(worst["dkv", dt], res[3][1], res[4][1])
             del q, k, v, do, o, lse, o_ref, lse_ref, got, want
-    n = counters()
-    check(n["fwd"] - before["fwd"] == n["dq"] - before["dq"]
-          == n["dkv"] - before["dkv"] == n_calls
-          and n["fwd_sm90"] == before["fwd_sm90"]
-          and n["dq_sm90"] == before["dq_sm90"]
-          and n["dkv_sm90"] == before["dkv_sm90"],
-          "d-256 launches did not all take the scalar kernels")
+    n = {key: c - before[key] for key, c in counters().items()}
+    n_bf16 = n_calls[torch.bfloat16]
+    total = sum(n_calls.values())
+    print(f"  d=256 launches: forward {n['fwd']} (wgmma {n['fwd_sm90']}), "
+          f"dQ {n['dq']} (wgmma {n['dq_sm90']}), dK/dV {n['dkv']} (wgmma "
+          f"{n['dkv_sm90']})", flush=True)
+    check(n["fwd"] == n["dq"] == n["dkv"] == total
+          and n["fwd_sm90"] == n["dkv_sm90"] == n_bf16
+          and n["dq_sm90"] == 0,
+          f"d-256 routes: want the {n_bf16} bf16 forward and dK/dV launches "
+          f"on wgmma and every dQ and fp32 launch scalar, got {n}")
 
-    rows = []
+    rows = {}
     # the forward at the Gemma serving prefill: 8 prompts of 512, causal
     b, s = 8, 512
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in dts:
         q, k, v, _ = inputs(b, s, s, dt)
         ms = time_ms(lambda: flash_forward(q, k, v, True), iters=10)
         plain_ms = time_ms(lambda: flash_forward_plain(q, k, v, True),
@@ -758,21 +793,30 @@ def flash_d256_phase(dev) -> list:
         print(f"  flash d=256 timing b={b} s={s} causal {str(dt)[6:]}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
               f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+        fp32 = dt == torch.float32
+        name, src = (("flash_attention_fwd_scalar", "flash_fwd.cu") if fp32
+                     else ("flash_attention_fwd_sm90_d256",
+                           "flash_fwd_sm90_d256.cu"))
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": f"ray_tpu_torch/csrc/{src}",
+                      "replaces": "ray_tpu/ops/attention.py:78",
+                      "max_abs_err": worst["fwd", dt], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+                      "library_ms": lib_ms}
         del q, k, v, qt, kt, vt
-    rows.append({"name": "flash_attention_fwd_scalar", "route": "cuda",
-                 "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-                 "replaces": "ray_tpu/ops/attention.py:78",
-                 "max_abs_err": worst["fwd"], "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms})
-    # the backward at b 2 x s 2048, causal
+    # the backward at b 2 x s 2048, causal: bf16 runs the scalar dQ and
+    # the wgmma dK/dV, fp32 the two scalar kernels
     b, s = 2, 2048
     pairs = s * (s + 1) // 2
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in dts:
+        fp32 = dt == torch.float32
         q, k, v, do = inputs(b, s, s, dt)
         o, lse = flash_forward_plain(q.float(), k.float(), v.float(), True)
         o = o.to(dt).contiguous()
+        dkv_kernel = ("flash_bwd_dkv_kernel" if fp32
+                      else "flash_bwd_dkv_sm90_d256_kernel")
         ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
-                       ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+                       ("flash_bwd_dq_kernel", dkv_kernel))
         plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
                                                         True), iters=3)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -784,26 +828,106 @@ def flash_d256_phase(dev) -> list:
         del out
         size = q.element_size()
         ins = 4 * b * s * H * D * size + 2 * b * H * s * 4
-        cur = []
-        for name, key, flops, outs, line in (
+        dkv_name, dkv_src = (
+            ("flash_attention_bwd_dkv_scalar", "flash_bwd.cu") if fp32 else
+            ("flash_attention_bwd_dkv_sm90_d256",
+             "flash_bwd_dkv_sm90_d256.cu"))
+        for name, key, flops, outs, line, src, kind in (
                 ("flash_attention_bwd_dq_scalar", "flash_bwd_dq_kernel",
-                 6.0 * b * H * pairs * D, b * s * H * D * size, 207),
-                ("flash_attention_bwd_dkv_scalar", "flash_bwd_dkv_kernel",
-                 8.0 * b * H * pairs * D, 2 * b * s * KVH * D * size, 253)):
+                 6.0 * b * H * pairs * D, b * s * H * D * size, 207,
+                 "flash_bwd.cu", "dq"),
+                (dkv_name, dkv_kernel, 8.0 * b * H * pairs * D,
+                 2 * b * s * KVH * D * size, 253, dkv_src, "dkv")):
             bnd, by = bound_ms(ins + outs, flops, dt)
             print(f"  {name} d=256 timing b={b} s={s} causal "
                   f"{str(dt)[6:]}: kernel {ks[key]:.4f} ms, bound "
                   f"{bnd:.4f} ms ({by}); plain dq+dk+dv {plain_ms:.4f} ms, "
                   f"sdpa backward dq+dk+dv {lib_ms:.4f} ms", flush=True)
-            cur.append({"name": name, "route": "cuda",
-                        "source": "ray_tpu_torch/csrc/flash_bwd.cu",
-                        "replaces": f"ray_tpu/ops/attention.py:{line}",
-                        "max_abs_err": worst[name.split("_")[3]],
-                        "ms": ks[key], "plain_ms": plain_ms,
-                        "bound_ms": bnd, "bound_by": by,
-                        "library_ms": lib_ms})
+            # the table keeps the bf16 dQ (its main path) and the fp32
+            # dK/dV of the scalar kernel
+            if name == "flash_attention_bwd_dq_scalar" and fp32:
+                continue
+            rows[name] = {"name": name, "route": "cuda",
+                          "source": f"ray_tpu_torch/csrc/{src}",
+                          "replaces": f"ray_tpu/ops/attention.py:{line}",
+                          "max_abs_err": worst[kind, dt], "ms": ks[key],
+                          "plain_ms": plain_ms, "bound_ms": bnd,
+                          "bound_by": by, "library_ms": lib_ms}
+        if not fp32:
+            # the d-256 dK/dV kernel computes S^T and dP^T in both consumer
+            # warpgroups: 12*d FLOPs a visible pair, not the function's 8*d
+            own, _ = bound_ms(ins + 2 * b * s * KVH * D * size,
+                              12.0 * b * H * pairs * D, dt)
+            print(f"  flash_attention_bwd_dkv_sm90_d256: its own bound "
+                  f"(12*d FLOPs a visible pair) {own:.4f} ms", flush=True)
         del q, k, v, do, o, lse, qt, kt, vt
-    return rows + cur    # the bf16 times in the rows
+    return list(rows.values())
+
+
+def flash_small_d_phase(dev) -> None:
+    """The tiny presets' head dims 16 and 32, fp32 and bf16, 4/2 heads:
+    the flash forward, dQ and dK/dV (all on the scalar route) causal,
+    non-causal, ragged and sq < sk, and the paged kernel under each row
+    maximum (G 1, 2, 4 and 8) on the old contexts, each against its plain
+    version."""
+    from ray_tpu_torch.ops.attention import (flash_backward,
+                                             flash_backward_plain,
+                                             flash_forward,
+                                             flash_forward_plain)
+    from ray_tpu_torch.ops.paged_attention import (paged_attention,
+                                                   paged_attention_reference)
+
+    H, KVH = 4, 2
+    g = torch.Generator(device=dev).manual_seed(8)
+    before = counters()
+    n_calls = 0
+    for D in (16, 32):
+        for dt in (torch.float32, torch.bfloat16):
+            fp32 = dt == torch.float32
+            for b, sq, sk, causal in ((2, 128, 128, True),
+                                      (2, 128, 128, False),
+                                      (1, 100, 100, True),
+                                      (2, 128, 300, True)):
+                q, do = (torch.randn(b, sq, H, D, generator=g, device=dev)
+                         .to(dt) for _ in range(2))
+                k, v = (torch.randn(b, sk, KVH, D, generator=g, device=dev)
+                        .to(dt) for _ in range(2))
+                o, lse = flash_forward(q, k, v, causal)
+                o_ref, lse_ref = flash_forward_plain(q.float(), k.float(),
+                                                     v.float(), causal)
+                got = flash_backward(q, k, v, o, lse, do, causal)
+                want = flash_backward_plain(q.float(), k.float(), v.float(),
+                                            o.float(), lse, do.float(),
+                                            causal)
+                torch.cuda.synchronize()
+                n_calls += 1
+                tol_f = (1e-4, 0.0) if fp32 else (2e-2, 2e-2)
+                tol_b = (1e-4, 1e-4) if fp32 else (2e-2, 2e-2)
+                res = [close(o, o_ref, *tol_f), close(lse, lse_ref, *tol_f)]
+                res += [close(a, w, *tol_b) for a, w in zip(got, want)]
+                print(f"  flash d={D} b={b} sq={sq} sk={sk} causal={causal}"
+                      f" {str(dt)[6:]}: max err O, lse, dq, dk, dv "
+                      f"{', '.join(f'{e:.3e}' for _, e in res)}", flush=True)
+                check(all(ok for ok, _ in res), f"d-{D} flash kernels "
+                      f"disagree with their plain versions (b={b} sq={sq} "
+                      f"sk={sk} causal={causal} {dt})")
+            ctx_check = [0, 1, 63, 64, 65, 300, 517, 1024]
+            tol = (1e-4, 1e-5) if fp32 else (2e-2, 2e-2)
+            for grp in (1, 2, 4, 8):
+                q, kp, vp, bt, bt_plain, ctx = _paged_inputs(
+                    dev, dt, g, ctx_check, KVH=2, G=grp, hd=D)
+                got = paged_attention(q, kp, vp, bt, ctx)
+                want = paged_attention_reference(q.float(), kp.float(),
+                                                 vp.float(), bt_plain, ctx)
+                torch.cuda.synchronize()
+                _paged_check(f"KVH 2 G {grp} hd {D} {str(dt)[6:]}", got,
+                             want, ctx, tol)
+    n = {key: c - before[key] for key, c in counters().items()}
+    check(n["fwd"] == n["dq"] == n["dkv"] == n_calls
+          and n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == 0
+          and n["paged"] == n["paged_merge"] == 16,
+          f"d-16/32 launches: want {n_calls} of each flash kernel on the "
+          f"scalar route and 16 paged calls, got {n}")
 
 
 # ------------------------------------------------------------ phases 2, 3
@@ -930,27 +1054,29 @@ def fp32_phase(dev, cfg, name) -> None:
 # ------------------------------------------------------------ phases 4, 5
 
 
-def grad_phase(dev, cfg) -> int:
-    """fp32 gradients of ``cfg`` (2 layers) through the flash kernels
-    against the reference attention's and against no remat. Returns the
-    dQ launches of the flash run."""
+def grad_phase(dev, cfg, mod=None, seq: int = 256) -> dict:
+    """fp32 gradients of ``cfg`` (2 layers, batch 2 x ``seq``) through the
+    flash kernels against the reference attention's and against no
+    remat; ``mod`` (default ``models.llama``) gives ``init_params`` and
+    ``loss_fn``. Returns the launch counts of the flash run."""
     from dataclasses import replace
 
     from ray_tpu_torch.models import llama
 
+    mod = mod or llama
     cfg = replace(cfg, num_layers=2, dtype=torch.float32,
                   param_dtype=torch.float32, attn_impl="flash", remat=True)
-    params = llama.init_params(cfg, seed=0, device=dev)
+    params = mod.init_params(cfg, seed=0, device=dev)
     leaves = llama.param_leaves(params)
     for _, leaf in leaves:
         leaf.requires_grad_()
     toks = torch.from_numpy(np.random.default_rng(13).integers(
-        0, cfg.vocab_size, (2, 257))).to(dev)
+        0, cfg.vocab_size, (2, seq + 1))).to(dev)
 
     def loss_and_grads(c):
         for _, leaf in leaves:
             leaf.grad = None
-        loss = llama.loss_fn(c, params, {"tokens": toks})
+        loss = mod.loss_fn(c, params, {"tokens": toks})
         loss.backward()
         torch.cuda.synchronize()
         return loss.item(), [leaf.grad for _, leaf in leaves]
@@ -981,7 +1107,69 @@ def grad_phase(dev, cfg) -> int:
               f"{worst:.3e} over {len(leaves)} leaves", flush=True)
         check(dl <= 1e-4 * abs(l_other), f"flash vs {what}: loss differs")
         del g_other
-    return n["dq"]
+    return n
+
+
+def tiny_phase(dev) -> None:
+    """The tiny presets (head dim 16) on the card: both engines with
+    their defaults (Llama tiny, fp32) on prompts that pad to the 128
+    bucket give identical greedy transcripts, each token the argmax of a
+    cache-free forward through the reference attention; fp32 gradients
+    of the Llama, GPT-2 and Mixtral tiny presets through the kernels
+    match the reference attention's. The d-16 flash kernels and the
+    hd-16 paged kernel must have run."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import gpt2, llama, mixtral
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    rng = np.random.default_rng(14)
+    reqs = [(f"t{i}", [int(t) for t in rng.integers(1, 256, m)])
+            for i, m in enumerate((70, 90, 110, 127))]
+    got = {}
+    for name, make in (("dense", LLMEngine), ("paged", PagedLLMEngine)):
+        counters_reset()
+        eng = make(device=dev)
+        got[name] = {r: v["tokens"]
+                     for r, v in drain(eng, reqs, 120).items()}
+        cfg, params = eng._cfg, eng._params
+        stop(eng)
+        n = counters()
+        print(f"  tiny {name} engine (head dim {cfg.head_dim_}, "
+              f"{str(cfg.dtype)[6:]}): flash launches {n['fwd']} (wgmma "
+              f"{n['fwd_sm90']}), paged launches {n['paged']} (merges "
+              f"{n['paged_merge']})", flush=True)
+        if name == "dense":
+            check(n["fwd"] > 0 and n["fwd_sm90"] == 0,
+                  "tiny dense engine: no scalar flash launch")
+        else:
+            check(n["paged"] > 0 and n["paged_merge"] == n["paged"],
+                  "tiny paged engine: no paged split and merge launches")
+    check(got["dense"] == got["paged"], f"tiny dense and paged transcripts "
+          f"differ:\n{got['dense']}\n{got['paged']}")
+    oracle = replace(cfg, attn_impl="reference")
+    for rid, prompt in reqs:
+        seq = prompt + got["dense"][rid]
+        with torch.no_grad():
+            logits = llama.forward(oracle, params,
+                                   torch.tensor([seq], device=dev))
+        lg = logits[0, len(prompt) - 1:len(seq) - 1]
+        chosen = lg.gather(1, torch.tensor(got["dense"][rid],
+                                           device=dev)[:, None])
+        gap = float((lg.max(dim=1).values - chosen[:, 0]).max())
+        check(gap <= 1e-3, f"tiny {rid}: engine token is not the reference "
+              f"argmax (logit gap {gap})")
+    print("  tiny engines: transcripts identical and agree with "
+          "llama.forward", flush=True)
+    for name, mod, cfg in (("Llama", llama, llama.LlamaConfig.tiny()),
+                           ("GPT-2", gpt2, gpt2.GPT2Config.tiny()),
+                           ("Mixtral", mixtral,
+                            mixtral.MixtralConfig.tiny())):
+        n = grad_phase(dev, cfg, mod, seq=128)
+        print(f"  tiny {name} gradients: flash forward {n['fwd']}, dQ "
+              f"{n['dq']}, dK/dV {n['dkv']} launches, all scalar",
+              flush=True)
 
 
 def train_phase(dev) -> dict:
@@ -1177,7 +1365,9 @@ def serve_family_phase(dev, model) -> dict:
     kw = dict(model_config=_model_config(cfg), num_slots=8, max_len=1024,
               prefill_buckets=[128, 512], chunk_steps=8, max_new_tokens=32,
               eos_id=-1, params=params, device=dev)
-    sm90 = cfg.head_dim_ in (64, 128)
+    from ray_tpu_torch.ops.attention import flash_route
+
+    sm90 = flash_route(cfg.dtype, cfg.head_dim_, dev, "fwd") == "sm90"
     out_launches = {}
     for name, make in (("dense", lambda: LLMEngine(**kw)),
                        ("paged", lambda: PagedLLMEngine(page_size=64, **kw))):
@@ -1215,7 +1405,7 @@ def serve_family_phase(dev, model) -> dict:
             check(n["fwd_sm90"] == (n["fwd"] if sm90 else 0),
                   f"{model} dense: {n['fwd_sm90']} of {n['fwd']} flash "
                   f"launches on the wgmma route, want "
-                  f"{'all' if sm90 else 'none (head dim 256: scalar)'}")
+                  f"{'all' if sm90 else 'none (the scalar route)'}")
             out_launches["fwd"] = n["fwd"]
         else:
             want = L * n_run["decode_steps"]
@@ -1235,15 +1425,20 @@ def serve_family_phase(dev, model) -> dict:
     return out_launches
 
 
-def _train(dev, name, mod, cfg, params, toks, steps, n_active,
-           qdim) -> dict:
+def _train(dev, name, mod, cfg, params, toks, steps, n_active, heads,
+           head_dim) -> dict:
     """``steps`` AdamW(3e-4, weight decay 0.01) steps of ``mod.loss_fn``
     on one batch: losses finite and falling, every layer's flash forward
-    (twice under remat), dQ and dK/dV on the wgmma route each step.
-    Prints step time, tokens/s, MFU (bench.py's formula on ``n_active``
-    params a token and ``qdim`` = heads x head dim) and peak memory;
-    returns the launch counts."""
+    (twice under remat), dQ and dK/dV each step, each on the route
+    ``flash_route`` gives it at ``head_dim``. Prints step time, tokens/s,
+    MFU (bench.py's formula on ``n_active`` params a token and heads x
+    head dim) and peak memory; returns the launch counts."""
     from ray_tpu_torch.models.llama import param_leaves
+    from ray_tpu_torch.ops.attention import flash_route
+
+    routes = {k: flash_route(cfg.dtype, head_dim, dev, k)
+              for k in ("fwd", "dq", "dkv")}
+    qdim = heads * head_dim
 
     leaves = [p.requires_grad_() for _, p in param_leaves(params)]
     opt = torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01)
@@ -1278,15 +1473,17 @@ def _train(dev, name, mod, cfg, params, toks, steps, n_active,
     print(f"  {name}: launches flash forward {runs['fwd']} (wgmma route "
           f"{runs['fwd_sm90']}), dQ {runs['dq']} (wgmma route "
           f"{runs['dq_sm90']}), dK/dV {runs['dkv']} (wgmma route "
-          f"{runs['dkv_sm90']})", flush=True)
+          f"{runs['dkv_sm90']}); routes at head dim {head_dim}: {routes}",
+          flush=True)
     check(all(np.isfinite(losses)), f"{name}: non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses}")
-    check(runs["fwd"] == runs["fwd_sm90"] == 2 * L * steps,
-          f"{name}: {runs['fwd']} flash forward launches ({runs['fwd_sm90']}"
-          f" wgmma), want {2 * L * steps} on the wgmma route")
-    check(runs["dq"] == runs["dq_sm90"] == runs["dkv"] == runs["dkv_sm90"]
-          == L * steps, f"{name}: dQ/dK/dV launches {runs}, want "
-          f"{L * steps} each on the wgmma route")
+    for kernel, want in (("fwd", 2 * L * steps), ("dq", L * steps),
+                         ("dkv", L * steps)):
+        on_sm90 = want if routes[kernel] == "sm90" else 0
+        check(runs[kernel] == want and runs[f"{kernel}_sm90"] == on_sm90,
+              f"{name}: {runs[kernel]} {kernel} launches "
+              f"({runs[f'{kernel}_sm90']} wgmma), want {want} on the "
+              f"{routes[kernel]} route")
     del opt, leaves, loss
     return runs
 
@@ -1295,7 +1492,9 @@ def train_families_phase(dev) -> dict:
     """GPT-2 125M whole (12 layers, head dim 64) on tokens of 1025, so
     that the model sees 1024; then Mixtral-8x7B width (hidden 4096, ffn
     14336, 8 experts top-2, 32/8 heads) cut to 2 layers for memory, batch
-    4 x 2048. fp32 params, bf16 compute, full remat, 5 steps each."""
+    4 x 2048; then Gemma-7B width (hidden 3072, ffn 24576, 16/16 heads,
+    head dim 256, GeGLU, vocab 256000, tied) cut to 4 layers for memory,
+    batch 2 x 2048. fp32 params, bf16 compute, full remat, 5 steps each."""
     from ray_tpu_torch.models import gpt2, llama, mixtral
 
     runs = {}
@@ -1308,7 +1507,7 @@ def train_families_phase(dev) -> dict:
     print(f"  GPT-2 125M: {n / 1e9:.4f}e9 params, batch 8 x 1024",
           flush=True)
     runs["gpt2"] = _train(dev, "GPT-2 125M", gpt2, cfg, params, toks, 5, n,
-                          cfg.hidden_size)
+                          cfg.num_heads, cfg.head_dim)
     del params, toks
     gc.collect()
     torch.cuda.empty_cache()
@@ -1325,8 +1524,31 @@ def train_families_phase(dev) -> dict:
           f"capacity {mixtral._capacity(cfg, 4 * 2048)} a expert",
           flush=True)
     runs["mixtral"] = _train(dev, "Mixtral-8x7B width", mixtral, cfg, params,
-                             toks, 5, n_active,
-                             cfg.num_heads * cfg.head_dim_)
+                             toks, 5, n_active, cfg.num_heads, cfg.head_dim_)
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Gemma-7B width: head dim 256, the wgmma forward and dK/dV and the
+    # scalar dQ in bf16; profile_train's gemma_7b run, held to the
+    # published config
+    from dataclasses import replace
+
+    from ray_tpu_torch.tools.profile_train import train_config
+
+    cfg = train_config("gemma_7b")
+    check(cfg == replace(published_config("Gemma-7B"), num_layers=4,
+                         dtype=torch.bfloat16, param_dtype=torch.float32,
+                         remat=True, remat_policy="full"),
+          f"profile_train's gemma_7b config is not Gemma-7B's: {cfg}")
+    params = llama.init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (2, 2049))).to(dev)
+    n = llama.num_params(params)
+    print(f"  Gemma-7B width, 4 layers: {n / 1e9:.3f}e9 params, batch 2 x "
+          f"2048, head dim {cfg.head_dim_}", flush=True)
+    runs["gemma"] = _train(dev, "Gemma-7B width", llama, cfg, params, toks,
+                           5, n, cfg.num_heads, cfg.head_dim_)
     del params, toks
     gc.collect()
     torch.cuda.empty_cache()
@@ -1363,6 +1585,7 @@ def main() -> None:
     kernels = [fwd, paged_phase(dev, ctx_main), dq, dkv]
     kernels += paged_families_phase(dev, ctx_main)
     kernels += flash_d256_phase(dev)
+    flash_small_d_phase(dev)
     print("phase 2: fp32 full width, 2 layers, dense vs paged: Llama-3-8B, "
           "Qwen2-7B, Gemma-7B", flush=True)
     from ray_tpu_torch.models.llama import LlamaConfig
@@ -1383,7 +1606,7 @@ def main() -> None:
     grad_phase(dev, LlamaConfig.llama3_8b())
     gc.collect()
     torch.cuda.empty_cache()
-    dq_d256 = grad_phase(dev, published_config("Gemma-7B"))
+    gemma_fp32 = grad_phase(dev, published_config("Gemma-7B"))
     gc.collect()
     torch.cuda.empty_cache()
     print("phase 5: training, Llama-3-8B width, 8 layers, 5 AdamW steps",
@@ -1393,19 +1616,27 @@ def main() -> None:
           "paged", flush=True)
     qwen2 = serve_family_phase(dev, "Qwen2-7B")
     gemma = serve_family_phase(dev, "Gemma-7B")
-    print("phase 7: training GPT-2 125M and Mixtral-8x7B width",
-          flush=True)
-    train_families_phase(dev)
+    print("phase 7: training GPT-2 125M, Mixtral-8x7B width and Gemma-7B "
+          "width", flush=True)
+    families = train_families_phase(dev)
+    print("phase 8: the tiny presets (head dim 16) on the card", flush=True)
+    tiny_phase(dev)
     # the serving kernels' counts come from phases 3 and 6, the backward
-    # kernels' from phase 5 (wgmma) and phase 4's Gemma run (scalar, head
-    # dim 256); the forward's training counts are printed in 5 and 7
+    # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
+    # wgmma dK/dV and scalar dQ at d 256), the fp32 d-256 scalar forward's
+    # and dK/dV's from phase 4's Gemma run; the forward's training counts
+    # are printed in 5 and 7
+    gemma_train = families["gemma"]
     launches.update(flash_attention_bwd_dq=train["flash_attention_bwd_dq"],
                     flash_attention_bwd_dkv=train["flash_attention_bwd_dkv"],
-                    flash_attention_fwd_scalar=gemma["fwd"],
+                    flash_attention_fwd_sm90_d256=gemma["fwd"],
+                    flash_attention_fwd_scalar=gemma_fp32["fwd"],
                     paged_attention_gm8_hd128=qwen2["paged"],
                     paged_attention_gm1_hd256=gemma["paged"],
-                    flash_attention_bwd_dq_scalar=dq_d256,
-                    flash_attention_bwd_dkv_scalar=dq_d256)
+                    flash_attention_bwd_dq_scalar=gemma_train["dq"],
+                    flash_attention_bwd_dkv_scalar=gemma_fp32["dkv"],
+                    flash_attention_bwd_dkv_sm90_d256=gemma_train[
+                        "dkv_sm90"])
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     order = ("name", "route", "source", "replaces", "launches",

@@ -1,8 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a), the scalar kernels: dQ
-// and dK/dV for fp32 inputs at head dim 64, 128 and 256, and for bf16
-// inputs at head dim 256 (bf16 storage, fp32 arithmetic). bf16 at head dim
-// 64 and 128 takes the wgmma kernels fed by TMA (flash_bwd_dq_sm90.cu,
-// flash_bwd_dkv_sm90.cu).
+// and dK/dV for fp32 inputs at head dim 16, 32, 64, 128 and 256, and for
+// bf16 inputs at head dim 16 and 32 (bf16 storage, fp32 arithmetic); dQ
+// also for bf16 at head dim 256. bf16 at head dim 64 and 128 takes the
+// wgmma kernels fed by TMA (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu),
+// and bf16 dK/dV at head dim 256 flash_bwd_dkv_sm90_d256.cu.
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dq_kernel (pallas_call at
 // attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368), on
@@ -37,8 +38,9 @@
 // At head dim 256 (Gemma) the tiles halve to 32 query rows and 32 keys:
 // 64-row tiles would need 279,808 (dQ) and 296,448 (dK/dV) bytes of
 // shared memory against the 232,448 a block may take; 32-row tiles need
-// 135,808 and 140,032. There they are also the bf16 route: the simple kernels first, a
-// wgmma design is a later PR's work.
+// 135,808 and 140,032. There dQ is also the bf16 route, until a wgmma dQ
+// covers head dim 256. At head dims 16 and 32 (the tiny presets' widths,
+// below a wgmma tile's 64-column box) both are the bf16 route.
 
 #include "common.cuh"
 
@@ -392,9 +394,43 @@ bool bad_shape(int b, int sq, int sk, int H, int KVH) {
          b * H > 65535;
 }
 
+// The instances of head dim D: fp32, and bf16 at D <= 32 (dQ also at 256).
+template <int D>
+cudaError_t dq_d(int dtype, const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 void* dq, int b, int sq, int sk, int H, int KVH, int causal,
+                 float scale, cudaStream_t st) {
+  if (dtype == rtt::kFloat32)
+    return launch_dq<float, D>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
+                               KVH, causal, scale, st);
+  if constexpr (D <= 32 || D == 256) {
+    if (dtype == rtt::kBFloat16)
+      return launch_dq<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, b,
+                                         sq, sk, H, KVH, causal, scale, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t dkv_d(int dtype, const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dk, void* dv, int b, int sq, int sk, int H, int KVH,
+                  int causal, float scale, cudaStream_t st) {
+  if (dtype == rtt::kFloat32)
+    return launch_dkv<float, D>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
+                                H, KVH, causal, scale, st);
+  if constexpr (D <= 32) {
+    if (dtype == rtt::kBFloat16)
+      return launch_dkv<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dk, dv,
+                                          b, sq, sk, H, KVH, causal, scale,
+                                          st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: fp32 at d 64, 128 or 256; bf16 at d 256.
+// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16, 32 or 256.
 extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int dtype, int b,
@@ -403,23 +439,29 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32 && d == 64)
-    err = launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
-                               KVH, causal, scale, st);
-  else if (dtype == rtt::kFloat32 && d == 128)
-    err = launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
-                                KVH, causal, scale, st);
-  else if (dtype == rtt::kFloat32 && d == 256)
-    err = launch_dq<float, 256>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
-                                KVH, causal, scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 256)
-    err = launch_dq<__nv_bfloat16, 256>(q, k, v, dout, lse, delta, dq, b, sq,
-                                        sk, H, KVH, causal, scale, st);
-  return static_cast<int>(err);
+  switch (d) {
+    case 16:
+      return static_cast<int>(dq_d<16>(dtype, q, k, v, dout, lse, delta, dq,
+                                       b, sq, sk, H, KVH, causal, scale, st));
+    case 32:
+      return static_cast<int>(dq_d<32>(dtype, q, k, v, dout, lse, delta, dq,
+                                       b, sq, sk, H, KVH, causal, scale, st));
+    case 64:
+      return static_cast<int>(dq_d<64>(dtype, q, k, v, dout, lse, delta, dq,
+                                       b, sq, sk, H, KVH, causal, scale, st));
+    case 128:
+      return static_cast<int>(dq_d<128>(dtype, q, k, v, dout, lse, delta,
+                                        dq, b, sq, sk, H, KVH, causal, scale,
+                                        st));
+    case 256:
+      return static_cast<int>(dq_d<256>(dtype, q, k, v, dout, lse, delta,
+                                        dq, b, sq, sk, H, KVH, causal, scale,
+                                        st));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: fp32 at d 64, 128 or 256; bf16 at d 256.
+// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16 or 32.
 extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
@@ -429,18 +471,27 @@ extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32 && d == 64)
-    err = launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
-                                H, KVH, causal, scale, st);
-  else if (dtype == rtt::kFloat32 && d == 128)
-    err = launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
-                                 H, KVH, causal, scale, st);
-  else if (dtype == rtt::kFloat32 && d == 256)
-    err = launch_dkv<float, 256>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
-                                 H, KVH, causal, scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 256)
-    err = launch_dkv<__nv_bfloat16, 256>(q, k, v, dout, lse, delta, dk, dv, b,
-                                         sq, sk, H, KVH, causal, scale, st);
-  return static_cast<int>(err);
+  switch (d) {
+    case 16:
+      return static_cast<int>(dkv_d<16>(dtype, q, k, v, dout, lse, delta, dk,
+                                        dv, b, sq, sk, H, KVH, causal, scale,
+                                        st));
+    case 32:
+      return static_cast<int>(dkv_d<32>(dtype, q, k, v, dout, lse, delta, dk,
+                                        dv, b, sq, sk, H, KVH, causal, scale,
+                                        st));
+    case 64:
+      return static_cast<int>(dkv_d<64>(dtype, q, k, v, dout, lse, delta, dk,
+                                        dv, b, sq, sk, H, KVH, causal, scale,
+                                        st));
+    case 128:
+      return static_cast<int>(dkv_d<128>(dtype, q, k, v, dout, lse, delta,
+                                         dk, dv, b, sq, sk, H, KVH, causal,
+                                         scale, st));
+    case 256:
+      return static_cast<int>(dkv_d<256>(dtype, q, k, v, dout, lse, delta,
+                                         dk, dv, b, sq, sk, H, KVH, causal,
+                                         scale, st));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), the scalar kernel: fp32
-// inputs at head dim 64, 128 and 256, and bf16 inputs at head dim 256
-// (bf16 storage, fp32 arithmetic). bf16 at head dim 64 and 128 takes
-// flash_fwd_sm90.cu (wgmma fed by TMA).
+// inputs at head dim 16, 32, 64, 128 and 256, and bf16 inputs at head dim
+// 16 and 32 (bf16 storage, fp32 arithmetic). bf16 at head dim 64 and 128
+// takes flash_fwd_sm90.cu, at head dim 256 flash_fwd_sm90_d256.cu (wgmma
+// fed by TMA).
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_kernel (launched by
 // _flash_forward, pallas_call at attention.py:178). Same function: blocked
@@ -17,19 +18,19 @@
 // What bounds it: at the serving shapes (b <= 8, s <= 512, d 128) the
 // work is ~4*b*H*s^2*d/2 FLOPs against ~b*s*(2H+2KVH)*d*2 bytes, well
 // above the card's ~295 FLOP/byte ridge, so the bound is the tensor-core
-// rate. This first kernel does not reach it: its products are scalar
-// fp32 FMAs out of shared memory (CUDA cores, ~1/15 of the bf16
-// tensor-core peak). What the design does do: one block per (b*H, 64-row
-// query tile) keeps the whole online softmax (m, l, and a 64 x d fp32
-// accumulator) in registers, stages each 64-key K/V tile once in shared
-// memory for all 64 query rows, never writes the score matrix to device
-// memory, and stops at the causal bound. It stays for fp32 because a wgmma
-// product on fp32 inputs is TF32, which could not hold the fp32 engines
-// and gradients to their references at 1e-4. At head dim 256 it is also
-// the bf16 route, the simple kernel first (Gemma's head dim; a wgmma
-// design there is a later PR's work): its query tile halves to 32 rows
-// so that the tiles fit in shared memory (172,544 bytes) and the accumulator
-// stays at 64 registers a thread.
+// rate. This kernel does not reach it: its products are scalar fp32 FMAs
+// out of shared memory (CUDA cores, ~1/15 of the bf16 tensor-core peak).
+// What the design does do: one block per (b*H, 64-row query tile) keeps
+// the whole online softmax (m, l, and a 64 x d fp32 accumulator) in
+// registers, stages each 64-key K/V tile once in shared memory for all 64
+// query rows, never writes the score matrix to device memory, and stops at
+// the causal bound. It stays for fp32 because a wgmma product on fp32
+// inputs is TF32, which could not hold the fp32 engines and gradients to
+// their references at 1e-4. It is also the bf16 route at head dims 16 and
+// 32 (the tiny presets' widths, below a wgmma tile's 64-column box). At
+// head dim 256 its query tile halves to 32 rows so that the tiles fit in
+// shared memory (172,544 bytes) and the accumulator stays at 64 registers
+// a thread.
 
 #include "common.cuh"
 
@@ -216,9 +217,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// One head dim's instance of each dtype the scalar route takes.
+template <int D>
+cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
+                     void* o, void* lse, int b, int sq, int sk, int H,
+                     int KVH, int causal, float scale, cudaStream_t st) {
+  if (dtype == rtt::kFloat32)
+    return launch<float, D>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
+                            scale, st);
+  if constexpr (D <= 32) {
+    if (dtype == rtt::kBFloat16)
+      return launch<__nv_bfloat16, D>(q, k, v, o, lse, b, sq, sk, H, KVH,
+                                      causal, scale, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: fp32 at d 64, 128 or 256; bf16 at d 256.
+// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16 or 32.
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int dtype, int b, int sq,
                              int sk, int H, int KVH, int d, int causal,
@@ -228,17 +245,27 @@ extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == rtt::kFloat32 && d == 64)
-    err = launch<float, 64>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                            scale, st);
-  else if (dtype == rtt::kFloat32 && d == 128)
-    err = launch<float, 128>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                             scale, st);
-  else if (dtype == rtt::kFloat32 && d == 256)
-    err = launch<float, 256>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                             scale, st);
-  else if (dtype == rtt::kBFloat16 && d == 256)
-    err = launch<__nv_bfloat16, 256>(q, k, v, o, lse, b, sq, sk, H, KVH,
-                                     causal, scale, st);
+  switch (d) {
+    case 16:
+      err = launch_d<16>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
+                         scale, st);
+      break;
+    case 32:
+      err = launch_d<32>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
+                         scale, st);
+      break;
+    case 64:
+      err = launch_d<64>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
+                         scale, st);
+      break;
+    case 128:
+      err = launch_d<128>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
+                          scale, st);
+      break;
+    case 256:
+      err = launch_d<256>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
+                          scale, st);
+      break;
+  }
   return static_cast<int>(err);
 }

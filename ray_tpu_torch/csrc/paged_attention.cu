@@ -42,21 +42,23 @@
 //   lanes (NI x G registers a lane), or, where that would pass 32
 //   registers (mostly G 5-8 and hd 256), lane kk keeps key kk's score of
 //   every row (G registers a lane, two more reductions over the warp).
-//   P.V: each lane accumulates hd/32 fp32 columns of all G rows. At the
-//   end the 4 warps' (m, l, acc) are combined in shared memory and the
-//   block writes its fp32 partial.
+//   P.V: each lane accumulates hd/32 fp32 columns of all G rows; at hd 16
+//   (16 columns for 32 lanes) the two half-warps take alternate keys and
+//   are summed before the combine. At the end the 4 warps' (m, l, acc)
+//   are combined in shared memory and the block writes its fp32 partial.
 // - G is a runtime row count under a compile-time maximum GM (1, 2, 4 or
 //   8): G 3 runs the GM 4 instance, G 5-7 the GM 8 one, with the rows past
-//   G skipped. Registers are sized by GM; 24 instances instead of the 48
-//   that one per G would take, and the rows a smaller G leaves idle cost
-//   no bytes, which set the time.
+//   G skipped. Registers are sized by GM; 40 instances (2 dtypes x 5 head
+//   dims x 4 maxima) instead of the 80 that one per G would take, and the
+//   rows a smaller G leaves idle cost no bytes, which set the time.
 // - Merge. A second small kernel combines each (slot, head)'s live splits
 //   in split order: m = max m_i, l = sum l_i e^(m_i - m), acc = sum acc_i
 //   e^(m_i - m). A separate kernel rather than a last-block ticket: it
 //   keeps no counter state between calls and no fence/atomic protocol, and
 //   its ~0.7 MB of partials at the serving shape are still in L2. No float
 //   atomics anywhere, so two calls on the same inputs agree bit for bit.
-// Page size must be a multiple of 16; hd 64, 128 or 256; G 1 to 8.
+// Page size must be a multiple of 16; hd 16, 32, 64, 128 or 256 (16 and
+// 32 are the tiny presets' widths); G 1 to 8.
 
 #include <mutex>
 
@@ -89,29 +91,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// N values of T at p (N * sizeof(T) bytes, 4, 8 or 16, aligned to their
-// size) as fp32; bf16 widens exactly.
+// N values of T at p (N * sizeof(T) bytes, 2, 4, 8 or 16, aligned to
+// their size) as fp32; bf16 widens exactly.
 template <typename T, int N>
 __device__ __forceinline__ void load_floats(const T* p, float (&o)[N]) {
   constexpr int W = N * static_cast<int>(sizeof(T)) / 4;  // 32-bit words
-  static_assert(W == 1 || W == 2 || W == 4, "4, 8 or 16 bytes");
-  uint32_t w[W];
-  if constexpr (W == 4) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-  } else if constexpr (W == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x, w[1] = v.y;
+  static_assert(W <= 2 || W == 4, "2, 4, 8 or 16 bytes");
+  if constexpr (W == 0) {  // one bf16
+    o[0] = __uint_as_float(
+        static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p)) << 16);
   } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      o[i] = __uint_as_float(w[i]);
+    uint32_t w[W];
+    if constexpr (W == 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else if constexpr (W == 2) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x, w[1] = v.y;
     } else {
-      o[2 * i] = __uint_as_float(w[i] << 16);
-      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      if constexpr (sizeof(T) == 4) {
+        o[i] = __uint_as_float(w[i]);
+      } else {
+        o[2 * i] = __uint_as_float(w[i] << 16);
+        o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
     }
   }
 }
@@ -141,7 +148,10 @@ struct Shape {
   static constexpr int QV = HD / LPK;
   static constexpr int KPI = 32 / LPK;  // keys per warp iteration
   static constexpr int NI = SUB / KPI;  // iterations per sub-tile
-  static constexpr int DPL = HD / 32;   // P.V output columns per lane
+  // P.V output columns per lane; below hd 32 a column takes KSPLIT lanes,
+  // each summing every KSPLIT-th key
+  static constexpr int DPL = HD >= 32 ? HD / 32 : 1;
+  static constexpr int KSPLIT = 32 * DPL / HD;
   static constexpr int TILE = SUB * HD;  // values of one K (or V) sub-tile
   static constexpr int CHUNKS = TILE * static_cast<int>(sizeof(T)) / 16 / 32;
   static constexpr int STAGE_BYTES = 2 * TILE * static_cast<int>(sizeof(T));
@@ -221,6 +231,9 @@ __device__ __forceinline__ void tile_grouped(
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[g][e] *= alpha;
   }
+  // this lane's P.V columns and, below hd 32, its share of the keys
+  constexpr int COLS = HD / DPL, KSPLIT = Sh::KSPLIT;
+  const int col = (lane % COLS) * DPL, part = lane / COLS;
 #pragma unroll
   for (int it = 0; it < NI; ++it)
 #pragma unroll
@@ -228,12 +241,14 @@ __device__ __forceinline__ void tile_grouped(
       const int kk = it * KPI + jj;
       if (key0 + kk >= ctx) continue;  // uniform across the warp
       float vf[DPL];
-      load_row<T, DPL>(Vs + kk * HD + lane * DPL, vf);
+      load_row<T, DPL>(Vs + kk * HD + col, vf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         const float p = __shfl_sync(0xffffffffu, sc[it][g], jj * LPK);
+        if (KSPLIT == 1 || kk % KSPLIT == part) {
 #pragma unroll
-        for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+          for (int e = 0; e < DPL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
       }
     }
 }
@@ -252,6 +267,7 @@ __device__ __forceinline__ void tile_spread(
   using Sh = Shape<T, HD>;
   constexpr int LPK = Sh::LPK, QV = Sh::QV, KPI = Sh::KPI, NI = Sh::NI;
   constexpr int DPL = Sh::DPL;
+  static_assert(Sh::KSPLIT == 1, "a lane's own columns: hd 32 and up");
   const int j = lane / LPK, c = lane % LPK;
   float sc[GM];
 #pragma unroll
@@ -420,9 +436,16 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       wm[warp * GM + g] = m_w[g];
       wl[warp * GM + g] = l_w[g];
     }
+    // below hd 32 the half-warps' key shares sum first
+    constexpr int COLS = HD / DPL;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e)
-      wacc[(warp * GM + g) * HD + lane * DPL + e] = acc[g][e];
+    for (int e = 0; e < DPL; ++e) {
+      float a = acc[g][e];
+#pragma unroll
+      for (int off = COLS; off < 32; off <<= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      if (lane < COLS) wacc[(warp * GM + g) * HD + lane * DPL + e] = a;
+    }
   }
   __syncthreads();
   for (int e = threadIdx.x; e < G * HD; e += NT) {
@@ -534,6 +557,8 @@ cudaError_t launch_g(const Args& a) {
 
 template <typename T>
 cudaError_t launch_hd(int hd, const Args& a) {
+  if (hd == 16) return launch_g<T, 16>(a);
+  if (hd == 32) return launch_g<T, 32>(a);
   if (hd == 64) return launch_g<T, 64>(a);
   if (hd == 128) return launch_g<T, 128>(a);
   if (hd == 256) return launch_g<T, 256>(a);

@@ -10,8 +10,9 @@ block-table row, kept on the host by serve/paged_engine.py).
   XLA, not Pallas).
 - ``paged_decode_step`` takes history attention from the page-walk
   kernel (ops/paged_attention.py: the CUDA kernel on the card, its plain
-  version on the CPU) and merges the in-flight token's self term into
-  the ``(acc, m, l)`` triple exactly.
+  version on the CPU), or from the plain gather when the caller passes
+  ``use_kernel=False`` as the reference's switch, and merges the
+  in-flight token's self term into the ``(acc, m, l)`` triple exactly.
 
 The pool is updated IN PLACE where the reference donates it. Rows the
 reference drops (pad rows of a chunk, inactive slots) are removed on the
@@ -33,7 +34,9 @@ from ray_tpu_torch.models.llama_decode import (_head, _kept_rows, _mlp,
                                                _out_proj, _project_qkv,
                                                sample_tokens)
 from ray_tpu_torch.ops.layers import apply_rope, rope_frequencies
-from ray_tpu_torch.ops.paged_attention import clamp_page_ids, paged_attention
+from ray_tpu_torch.ops.paged_attention import (clamp_page_ids,
+                                               paged_attention,
+                                               paged_attention_reference)
 
 _NEG_INF = -1e30
 
@@ -107,8 +110,24 @@ def prefill_chunk(cfg: LlamaConfig, params, cache: Dict[str, torch.Tensor],
     return cache, _head(cfg, params, x_last)
 
 
+def history_attention(use_kernel: Optional[bool], device):
+    """The reference's ``use_kernel`` switch: ``None`` takes
+    ``paged_attention`` (the kernel on CUDA tensors, its plain version on
+    CPU ones), ``False`` the gather ``paged_attention_reference`` on
+    either device, ``True`` the kernel, which needs a CUDA device."""
+    if use_kernel is None:
+        return paged_attention
+    if not use_kernel:
+        return paged_attention_reference
+    if torch.device(device).type != "cuda":
+        raise ValueError(
+            f"use_kernel=True: the paged kernel runs on CUDA tensors only, "
+            f"not {torch.device(device).type}")
+    return paged_attention
+
+
 def _paged_decode(cfg: LlamaConfig, params, cache, tokens, positions, rows,
-                  block_table, cos, sin):
+                  block_table, cos, sin, use_kernel=None):
     """One paged decode step; returns logits [S, vocab] f32."""
     S = tokens.shape[0]
     hd = cfg.head_dim_
@@ -123,6 +142,7 @@ def _paged_decode(cfg: LlamaConfig, params, cache, tokens, positions, rows,
     r_pos = pos[rows]
     pidx = block_table[rows, (r_pos // page).clamp(0, MAXP - 1)].long()
     poff = r_pos % page
+    attend = history_attention(use_kernel, x.device)
     for l in range(cfg.num_layers):
         p = layer_params(params, l)
         kp, vp = cache["k"][l], cache["v"][l]
@@ -131,7 +151,7 @@ def _paged_decode(cfg: LlamaConfig, params, cache, tokens, positions, rows,
         k = apply_rope(k, cos, sin, positions=pos[:, None])
         k1, v1 = k[:, 0], v[:, 0]                             # [S, KVH, hd]
         q2 = q[:, 0].reshape(S, KVH, rep, hd)
-        acc, m, lsum = paged_attention(q2, kp, vp, block_table, positions)
+        acc, m, lsum = attend(q2, kp, vp, block_table, positions)
         # exact merge of the in-flight token's self term
         s_self = torch.einsum("skgd,skd->skg", q2.float(),
                               k1.float()) * scale
@@ -163,15 +183,18 @@ def _decode_inputs(cfg, cache, tokens, positions, block_table):
 def paged_decode_step(cfg: LlamaConfig, params,
                       cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
                       positions: torch.Tensor, active,
-                      block_table: torch.Tensor
+                      block_table: torch.Tensor,
+                      use_kernel: Optional[bool] = None
                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One token for every slot over paged KV. tokens/positions/active
-    [S] as the dense decode_step; block_table [S, MAXP]. The new K/V of
-    active slots lands in the pool in place. Returns (cache, logits)."""
+    [S] as the dense decode_step; block_table [S, MAXP]; ``use_kernel``
+    as ``history_attention``. The new K/V of active slots lands in the
+    pool in place. Returns (cache, logits)."""
     dev, bt, cos, sin, toks, pos = _decode_inputs(cfg, cache, tokens,
                                                   positions, block_table)
     logits = _paged_decode(cfg, params, cache, toks, pos,
-                           _kept_rows(active, dev), bt, cos, sin)
+                           _kept_rows(active, dev), bt, cos, sin,
+                           use_kernel)
     return cache, logits
 
 
@@ -182,7 +205,8 @@ def paged_decode_chunk(cfg: LlamaConfig, params,
                        block_table: torch.Tensor, num_steps: int,
                        generator: Optional[torch.Generator] = None,
                        temperature: Optional[torch.Tensor] = None,
-                       top_k: int = 0, sample: bool = True
+                       top_k: int = 0, sample: bool = True,
+                       use_kernel: Optional[bool] = None
                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                                   torch.Tensor, torch.Tensor]:
     """``num_steps`` paged decode steps chained on the device, with the
@@ -198,7 +222,7 @@ def paged_decode_chunk(cfg: LlamaConfig, params,
     outs = []
     for _ in range(num_steps):
         logits = _paged_decode(cfg, params, cache, toks, pos, rows, bt,
-                               cos, sin)
+                               cos, sin, use_kernel)
         if sample:
             nxt = sample_tokens(logits, generator, temperature, top_k)
         else:
@@ -209,11 +233,15 @@ def paged_decode_chunk(cfg: LlamaConfig, params,
     return cache, torch.stack(outs), toks, pos
 
 
-def make_paged_engine_fns(cfg: LlamaConfig, params):
+def make_paged_engine_fns(cfg: LlamaConfig, params,
+                          use_kernel: Optional[bool] = None):
     """(prefill_fn(cache, tokens, block_table, ctx0, n_valid),
     chunk_fn(cache, tokens, positions, active, block_table, num_steps,
-    generator, temperature, top_k, sample)) bound to cfg and params.
-    Pool geometry lives in the cache and table tensors."""
+    generator, temperature, top_k, sample)) bound to cfg, params and
+    ``use_kernel`` (``history_attention``'s switch; ``True`` raises here
+    for params off the card). Pool geometry lives in the cache and table
+    tensors."""
+    history_attention(use_kernel, params["embed"].device)
 
     def pre(cache, tokens, block_table, ctx0, n_valid):
         return prefill_chunk(cfg, params, cache, tokens, block_table, ctx0,
@@ -223,6 +251,6 @@ def make_paged_engine_fns(cfg: LlamaConfig, params):
                   generator=None, temperature=None, top_k=0, sample=True):
         return paged_decode_chunk(cfg, params, cache, tokens, positions,
                                   active, block_table, num_steps, generator,
-                                  temperature, top_k, sample)
+                                  temperature, top_k, sample, use_kernel)
 
     return pre, dec_chunk

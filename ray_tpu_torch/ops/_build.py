@@ -51,6 +51,8 @@ _SIGNATURES = {
                       _I, _F, _P],
     "rtt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _F, _P],
+    "rtt_flash_fwd_sm90_d256": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _F, _P],
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dq_sm90": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -59,6 +61,8 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dkv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P],
+    "rtt_flash_bwd_dkv_sm90_d256": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _F, _P],
     "rtt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rtt_paged_merge": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -11,16 +11,18 @@ tensor the kernels cannot take raises.
   and ``_flash_bwd_dkv_kernel``), recomputing the probabilities from that
   logsumexp.
 
-``flash_route`` picks the kernels from the inputs' device, dtype and
-head dim: bf16 at head dim 64 or 128 on the card takes the Hopper
-kernels that run wgmma on bf16 tiles fed by TMA
+``flash_route`` picks each kernel from the inputs' device, dtype and
+head dim. bf16 on the card takes the Hopper kernels that run wgmma on
+bf16 tiles fed by TMA: at head dim 64 or 128 all three
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``,
-``csrc/flash_bwd_dkv_sm90.cu``); fp32 on the card takes the scalar
-kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which hold fp32
-to 1e-4 where a wgmma on fp32 inputs would be TF32. Head dim 256
-(Gemma) takes the scalar kernels in both dtypes, bf16 as storage with
-fp32 arithmetic: the simple kernels, far from their bound, until a
-wgmma design covers it.
+``csrc/flash_bwd_dkv_sm90.cu``); at head dim 256 (Gemma) the forward
+and dK/dV (``csrc/flash_fwd_sm90_d256.cu``,
+``csrc/flash_bwd_dkv_sm90_d256.cu``), while dQ stays on the scalar
+kernel. fp32 on the card takes the scalar kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), which hold fp32 to 1e-4 where a wgmma on fp32
+inputs would be TF32; so does bf16 at head dim 16 and 32 (the tiny
+presets' widths, below a wgmma tile's 64-column box), bf16 as storage
+with fp32 arithmetic.
 
 ``flash_attention`` is the ``torch.autograd.Function`` over the two, the
 counterpart of the reference's ``custom_vjp``.
@@ -120,26 +122,37 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_route(dtype: torch.dtype, head_dim: int, device) -> str:
-    """Which flash kernels take inputs of this dtype, head dim and device:
-    ``"sm90"`` (bf16 on the card, head_dim 64 or 128: the wgmma kernels
-    of the forward, dQ and dK/dV), ``"scalar"`` (on the card, fp32 at
-    head_dim 64, 128 or 256 and bf16 at head_dim 256: the scalar kernels,
-    fp32 arithmetic), ``"plain"`` (the CPU: the plain PyTorch versions,
-    any dtype and head dim). Anything else raises ``ValueError``: there
-    is no fallback."""
+# head dims each route takes on the card; the wgmma route by kernel
+_SCALAR_HEAD_DIMS = (16, 32, 64, 128, 256)
+_SM90_HEAD_DIMS = {"fwd": (64, 128, 256), "dq": (64, 128),
+                   "dkv": (64, 128, 256)}
+
+
+def flash_route(dtype: torch.dtype, head_dim: int, device,
+                kernel: str = "fwd") -> str:
+    """Which kernel computes ``kernel`` (``"fwd"``, ``"dq"`` or
+    ``"dkv"``) for inputs of this dtype, head dim and device: ``"sm90"``
+    (bf16 on the card at head dim 64 or 128, and at 256 for the forward
+    and dK/dV: the wgmma kernels), ``"scalar"`` (on the card, fp32 at
+    head dim 16, 32, 64, 128 or 256, bf16 at 16 and 32, and the bf16 dQ
+    at 256: the scalar kernels, fp32 arithmetic), ``"plain"`` (the CPU:
+    the plain PyTorch versions, any dtype and head dim). Anything else
+    raises ``ValueError``: there is no fallback."""
+    if kernel not in _SM90_HEAD_DIMS:
+        raise ValueError(f"flash attention: unknown kernel {kernel!r} "
+                         "(fwd, dq or dkv)")
     kind = torch.device(device).type
     if kind == "cpu":
         return "plain"
     if kind != "cuda":
         raise ValueError(f"flash attention: unsupported device {device}")
-    if head_dim not in (64, 128, 256):
+    if head_dim not in _SCALAR_HEAD_DIMS:
         raise ValueError(f"flash attention: head_dim {head_dim} not "
-                         "supported on the card (64, 128 or 256)")
+                         f"supported on the card {_SCALAR_HEAD_DIMS}")
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"flash attention: dtype {dtype} not supported on "
                          "the card (float32 or bfloat16)")
-    if dtype == torch.bfloat16 and head_dim != 256:
+    if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS[kernel]:
         return "sm90"
     return "scalar"
 
@@ -162,8 +175,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel 1's wrapper: (O [b, sq, H, d] in q's dtype, lse f32
     [b*H, sq]). The route is ``flash_route``'s: CPU tensors take
     ``flash_forward_plain``; CUDA tensors (contiguous) launch
-    ``csrc/flash_fwd_sm90.cu`` (route ``"sm90"``) or ``csrc/flash_fwd.cu``
-    (route ``"scalar"``) on the current stream, or raise."""
+    ``csrc/flash_fwd_sm90.cu`` or, at head dim 256,
+    ``csrc/flash_fwd_sm90_d256.cu`` (route ``"sm90"``), or
+    ``csrc/flash_fwd.cu`` (route ``"scalar"``) on the current stream, or
+    raise."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape
@@ -185,14 +200,17 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr())
-    args = (b, sq, sk, h, kvh, d, int(bool(causal)), float(sm_scale))
+    shape = (b, sq, sk, h, kvh)
+    flags = (int(bool(causal)), float(sm_scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "sm90":
-            err = lib.rtt_flash_fwd_sm90(*ptrs, *args, stream)
+        if route == "sm90" and d == 256:
+            err = lib.rtt_flash_fwd_sm90_d256(*ptrs, *shape, *flags, stream)
+        elif route == "sm90":
+            err = lib.rtt_flash_fwd_sm90(*ptrs, *shape, d, *flags, stream)
         else:
-            err = lib.rtt_flash_fwd(*ptrs, _DTYPE_CODES[q.dtype], *args,
-                                    stream)
+            err = lib.rtt_flash_fwd(*ptrs, _DTYPE_CODES[q.dtype], *shape, d,
+                                    *flags, stream)
     _build.check(lib, err, f"flash_forward {route} kernel")
     flash_forward.launches += 1
     if route == "sm90":
@@ -246,14 +264,16 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernels 3 and 4's wrapper: (dq, dk, dv) of attention with output
     ``o`` and row logsumexp ``lse`` [b*H, sq] (``flash_forward``'s) under
-    the cotangent ``do``. The route is ``flash_route``'s: CPU tensors take
-    ``flash_backward_plain``; CUDA tensors (contiguous) launch the dQ
-    and dK/dV kernels of ``csrc/flash_bwd_dq_sm90.cu`` and
-    ``csrc/flash_bwd_dkv_sm90.cu`` (route ``"sm90"``) or of
-    ``csrc/flash_bwd.cu`` (route ``"scalar"``) on the current stream, or
-    raise. ``delta = rowsum(dO * O)`` is
-    computed here with torch ops, as XLA computes it outside the Pallas
-    kernels."""
+    the cotangent ``do``. Each kernel's route is ``flash_route``'s: CPU
+    tensors take ``flash_backward_plain``; CUDA tensors (contiguous)
+    launch, on the current stream, the dQ kernel of
+    ``csrc/flash_bwd_dq_sm90.cu`` (route ``"sm90"``) or of
+    ``csrc/flash_bwd.cu`` (route ``"scalar"``), then the dK/dV kernel of
+    ``csrc/flash_bwd_dkv_sm90.cu`` or, at head dim 256,
+    ``csrc/flash_bwd_dkv_sm90_d256.cu`` (route ``"sm90"``), or of
+    ``csrc/flash_bwd.cu`` (route ``"scalar"``), or raise. ``delta =
+    rowsum(dO * O)`` is computed here with torch ops, as XLA computes it
+    outside the Pallas kernels."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     b, sq, h, d = q.shape
@@ -268,8 +288,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % kvh:
         raise ValueError(f"flash_backward: {h} heads not a multiple of "
                          f"{kvh} kv heads")
-    route = flash_route(q.dtype, d, q.device)
-    if route == "plain":
+    dq_route = flash_route(q.dtype, d, q.device, "dq")
+    dkv_route = flash_route(q.dtype, d, q.device, "dkv")
+    if dq_route == "plain":
         return flash_backward_plain(q, k, v, o, lse, do, causal, sm_scale)
     _check_cuda("flash_backward", q, k, v, o, do)
     if (lse.device != q.device or lse.dtype != torch.float32
@@ -284,28 +305,36 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    args = (b, sq, sk, h, kvh, d, int(bool(causal)), float(sm_scale))
-    sm90 = route == "sm90"
-    if not sm90:     # the scalar entries take the dtype first
-        args = (_DTYPE_CODES[q.dtype], *args)
-    dq_entry = lib.rtt_flash_bwd_dq_sm90 if sm90 else lib.rtt_flash_bwd_dq
-    dkv_entry = lib.rtt_flash_bwd_dkv_sm90 if sm90 else lib.rtt_flash_bwd_dkv
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    shape = (b, sq, sk, h, kvh)
+    flags = (int(bool(causal)), float(sm_scale))
+    code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = dq_entry(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *args, stream)
-        _build.check(lib, err, f"flash_backward {route} dQ kernel")
+        if dq_route == "sm90":
+            err = lib.rtt_flash_bwd_dq_sm90(*ins, dq.data_ptr(), *shape, d,
+                                            *flags, stream)
+        else:    # the scalar entries take the dtype first
+            err = lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(), code, *shape, d,
+                                       *flags, stream)
+        _build.check(lib, err, f"flash_backward {dq_route} dQ kernel")
         flash_backward.dq_launches += 1
-        if sm90:
+        if dq_route == "sm90":
             flash_backward.dq_sm90_launches += 1
-        err = dkv_entry(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *args, stream)
-        _build.check(lib, err, f"flash_backward {route} dK/dV kernel")
+        outs = (dk.data_ptr(), dv.data_ptr())
+        if dkv_route == "sm90" and d == 256:
+            err = lib.rtt_flash_bwd_dkv_sm90_d256(*ins, *outs, *shape,
+                                                  *flags, stream)
+        elif dkv_route == "sm90":
+            err = lib.rtt_flash_bwd_dkv_sm90(*ins, *outs, *shape, d, *flags,
+                                             stream)
+        else:
+            err = lib.rtt_flash_bwd_dkv(*ins, *outs, code, *shape, d,
+                                        *flags, stream)
+        _build.check(lib, err, f"flash_backward {dkv_route} dK/dV kernel")
         flash_backward.dkv_launches += 1
-        if sm90:
+        if dkv_route == "sm90":
             flash_backward.dkv_sm90_launches += 1
     return dq, dk, dv
 
@@ -320,39 +349,58 @@ flash_backward.dkv_sm90_launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """Forward through kernel 1, backward through kernels 3 and 4 (on
-    CPU tensors, through their plain versions); saves q, k, v, O and the
-    fp32 lse, as the reference's ``custom_vjp`` does."""
+    CPU tensors, or when ``plain``, through their plain versions); saves
+    q, k, v, O and the fp32 lse, as the reference's ``custom_vjp`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = flash_forward(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, plain):
+        fwd = flash_forward_plain if plain else flash_forward
+        out, lse = fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.plain = causal, sm_scale, plain
         return out
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, grad.contiguous(),
-                                    ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+        bwd = flash_backward_plain if ctx.plain else flash_backward
+        dq, dk, dv = bwd(q, k, v, out, lse, grad.contiguous(), ctx.causal,
+                         ctx.sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None,
                     block_q: Optional[int] = None,
-                    block_k: Optional[int] = None) -> torch.Tensor:
+                    block_k: Optional[int] = None,
+                    use_pallas: Optional[bool] = None,
+                    interpret: bool = False) -> torch.Tensor:
     """Flash attention, differentiable. q [b, sq, H, d]; k/v [b, sk,
     KVH, d].
 
+    ``use_pallas`` and ``interpret`` are the reference's switches, here
+    for the hand-written kernels: ``None`` picks by the tensors' device
+    (the kernels on the card, their plain versions on the CPU);
+    ``False`` runs ``attention_reference`` on either device; ``True``
+    runs the kernels, and on CPU tensors, where no kernel runs, needs
+    ``interpret=True``, which runs the kernels' plain versions (as the
+    reference emulates its Pallas kernels off the TPU) on either device.
     Lengths must divide the blocks (default: the largest power-of-two
     divisor up to 512), else the reference's ``ValueError``.
     """
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if use_pallas is False:
+        return attention_reference(q, k, v, causal, sm_scale)
+    if use_pallas and not interpret and q.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention(use_pallas=True): the kernels run on CUDA "
+            f"tensors only, not {q.device.type}; pass interpret=True to "
+            "run their plain versions")
     if block_q is None:
         block_q = _auto_block(q.shape[1], DEFAULT_BLOCK_Q)
     if block_k is None:
         block_k = _auto_block(k.shape[1], DEFAULT_BLOCK_K)
     _check_blocks(q.shape[1], k.shape[1], block_q, block_k)
-    return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    return _FlashAttention.apply(q, k, v, causal, sm_scale,
+                                 bool(interpret))

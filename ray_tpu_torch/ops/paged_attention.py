@@ -30,7 +30,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # what the kernel is built for: head dims, query rows per kv head (a
 # runtime count under row maxima 1, 2, 4 and 8), and the page size's
 # granule (its 16-key sub-tiles)
-_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_MAX_GROUP = 8
 _KERNEL_PAGE_MULTIPLE = 16
 # blocks the split pass aims at: ~8 per SM of an H100's 132, so that
@@ -115,8 +115,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel 2's wrapper; shapes and result as
     ``paged_attention_reference``. On CUDA the block table and ctx_len
-    are int32, head_dim is 64, 128 or 256, G is 1 to 8 and the page size
-    a multiple of 16; the kernel reads only entries of pages <
+    are int32, head_dim is 16, 32, 64, 128 or 256, G is 1 to 8 and the
+    page size a multiple of 16; the kernel reads only entries of pages <
     ceil(ctx/page), and clamps those as ``clamp_page_ids`` does. Two
     launches on the current stream: the split pass into fp32 partials,
     then the merge."""

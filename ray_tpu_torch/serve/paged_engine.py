@@ -141,16 +141,18 @@ class PagedLLMEngine(LLMEngine):
     page_size: tokens per page (default 64).
     num_pages: pool size (default slots x ceil(max_len / page), the dense
         equivalent; lower oversubscribes, higher adds prefix-cache room).
-
-    The reference's ``use_kernel`` has no counterpart: decode attention
-    always goes through ``ops.paged_attention``, the CUDA kernel on the
-    card and its plain version on the CPU.
+    use_kernel: the reference's switch for decode attention: None (the
+        default) takes ``ops.paged_attention``, the CUDA kernel on the
+        card and its plain version on the CPU; False the plain gather on
+        either device; True the kernel, and raises on the CPU.
     """
 
     def __init__(self, *args, page_size: int = 64,
-                 num_pages: Optional[int] = None, **kw):
+                 num_pages: Optional[int] = None,
+                 use_kernel: Optional[bool] = None, **kw):
         self._page_size = int(page_size)
         self._num_pages_arg = num_pages
+        self._use_kernel = use_kernel
         self._prefill_tokens_computed = 0
         self._prefix_hit_tokens = 0
         super().__init__(*args, **kw)
@@ -165,7 +167,8 @@ class PagedLLMEngine(LLMEngine):
                      else self._num_slots * self._maxp)
         self._alloc = _PageAllocator(num_pages, ps)
         self._prefill_chunk, self._decode_chunk = \
-            llama_paged.make_paged_engine_fns(self._cfg, self._params)
+            llama_paged.make_paged_engine_fns(self._cfg, self._params,
+                                              self._use_kernel)
         self._cache = llama_paged.init_paged_cache(
             self._cfg, num_pages, ps, self._device)
         # chunked prefill replaces the dense engine's max_len-1 overflow

@@ -1,28 +1,34 @@
 """Where the time of one training step goes, on the card.
 
-    python -m ray_tpu_torch.tools.profile_train
+    python -m ray_tpu_torch.tools.profile_train [--model gemma_7b]
 
-Builds the training run that ``chip_smoke.py`` phase 5 also takes
-(``build_train_run``): Llama-3-8B width with 8 layers, fp32 params,
-bf16 compute, full remat, batch 4 x seq 2048, random weights from seed
-0 and random tokens from numpy seed 0, and
+Builds a training run that ``chip_smoke.py`` also takes
+(``build_train_run``; ``train_config`` gives its config): by default
+(``llama3_8b``, phase 5) Llama-3-8B width with 8 layers, batch 4 x seq
+2048; ``gemma_7b`` (phase 7's Gemma run) google/gemma-7b's published
+width (hidden 3072, ffn 24576, 16/16 heads, head dim 256, vocab 256000,
+GeGLU, sqrt(hidden) embed scale, tied embedding) with 4 layers, batch 2
+x seq 2048. Both: fp32 params, bf16 compute, full remat, random weights
+from seed 0 and random tokens from numpy seed 0, and
 ``torch.optim.AdamW(lr=3e-4, weight_decay=0.01)``. A step
 (``train_step``) is ``loss_fn`` -> ``backward`` -> ``AdamW.step``.
-Depth is cut for memory alone: 32 layers at 16 B a param (fp32 params,
-grads and two moments) would not fit in 80 GB. After two warm-up steps it
-prints the host wall time of a step (median of 3 unprofiled steps), the
-device busy time from one ``torch.profiler`` step (sum of kernel times;
-one stream, so kernels do not overlap), the device idle share, the
-kernels that take the most device time, and the shares of: the flash
-forward, dQ and dK/dV kernels; the LM head's fp32 GEMMs (matrix
-products with the vocabulary in an input's shape, forward and
-backward); and the fp32 copies around them in ``llama._final_head``
+Depth is cut for memory alone: 32 (28) layers at 16 B a param (fp32
+params, grads and two moments) would not fit in 80 GB. After two warm-up
+steps it prints the host wall time of a step (median of 3 unprofiled
+steps), the device busy time from one ``torch.profiler`` step (sum of
+kernel times; one stream, so kernels do not overlap), the device idle
+share, the kernels that take the most device time, and the shares of:
+the flash forward, dQ and dK/dV kernels (any route); the LM head's fp32
+GEMMs (matrix products with the vocabulary in an input's shape, forward
+and backward); and the fp32 copies around them in ``llama._final_head``
 (copies with the vocabulary in an input's shape). Needs one card;
 imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import math
 import time
 from collections import defaultdict
 
@@ -32,12 +38,30 @@ from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch.models import llama
 
-LAYERS, BATCH, SEQ = 8, 4, 2048
+# (layers, batch, seq) of each run
+RUNS = {"llama3_8b": (8, 4, 2048), "gemma_7b": (4, 2, 2048)}
+LAYERS, BATCH, SEQ = RUNS["llama3_8b"]
 
-# the bf16 step's attention kernels, all on the wgmma route
-_KERNELS = {"flash forward (kernel 1)": "flash_fwd_sm90_kernel",
-            "flash dQ (kernel 3)": "flash_bwd_dq_sm90_kernel",
-            "flash dK/dV (kernel 4)": "flash_bwd_dkv_sm90_kernel"}
+# the attention kernels, by name prefix (the wgmma and scalar routes)
+_KERNELS = {"flash forward (kernel 1)": "flash_fwd",
+            "flash dQ (kernel 3)": "flash_bwd_dq",
+            "flash dK/dV (kernel 4)": "flash_bwd_dkv"}
+
+
+def train_config(model: str = "llama3_8b") -> llama.LlamaConfig:
+    """The config of a ``RUNS`` entry: fp32 params, bf16 compute, full
+    remat (the ``LlamaConfig`` defaults)."""
+    layers = RUNS[model][0]
+    if model == "llama3_8b":
+        return llama.LlamaConfig.llama3_8b(num_layers=layers)
+    # google/gemma-7b's config.json, as llama_config_from_hf and
+    # gemma_from_hf read it
+    return llama.LlamaConfig(
+        vocab_size=256_000, hidden_size=3072, intermediate_size=24_576,
+        num_layers=layers, num_heads=16, num_kv_heads=16, head_dim=256,
+        max_seq_len=8192, rope_theta=10_000.0, rms_norm_eps=1e-6,
+        tie_embeddings=True, mlp_act="gelu_tanh",
+        embed_scale=math.sqrt(3072))
 
 
 def _kernel_times(prof) -> dict:
@@ -64,17 +88,18 @@ def _vocab_op_us(prof, names, vocab: int) -> float:
     return total
 
 
-def build_train_run(device=None):
-    """(cfg, params, optimizer, tokens) of the training run: the params
+def build_train_run(device=None, model: str = "llama3_8b"):
+    """(cfg, params, optimizer, tokens) of a ``RUNS`` entry: the params
     require grad and the optimizer holds them; tokens are
-    ``[BATCH, SEQ + 1]``."""
+    ``[batch, seq + 1]``."""
     dev = llama.resolve_device(device)
-    cfg = llama.LlamaConfig.llama3_8b(num_layers=LAYERS)
+    _, batch, seq = RUNS[model]
+    cfg = train_config(model)
     params = llama.init_params(cfg, seed=0, device=dev)
     leaves = [p.requires_grad_() for _, p in llama.param_leaves(params)]
     opt = torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (BATCH, SEQ + 1))).to(dev)
+        0, cfg.vocab_size, (batch, seq + 1))).to(dev)
     return cfg, params, opt, toks
 
 
@@ -89,10 +114,14 @@ def train_step(cfg, params, opt, toks) -> torch.Tensor:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=sorted(RUNS), default="llama3_8b")
+    model = ap.parse_args().model
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, params, opt, toks = build_train_run()
-    print(f"Llama-3-8B width, {LAYERS} layers, batch {BATCH} x "
-          f"seq {SEQ}, fp32 params, bf16 compute, full remat, AdamW; "
+    cfg, params, opt, toks = build_train_run(model=model)
+    layers, batch, seq = RUNS[model]
+    print(f"{model} width, {layers} layers, batch {batch} x seq {seq}, "
+          f"fp32 params, bf16 compute, full remat, AdamW; "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     def step():

@@ -22,9 +22,11 @@ name holds ``flash_bwd_dq`` or ``flash_bwd_dkv``). The paged wrapper at
 each call after the same L2 write (mean of 50; what ``chip_smoke.py``
 reports), the device time of its kernels (name holding ``paged``) from
 ``torch.profiler`` over 50 calls, each after the L2 write, and the host
-time of one call (mean over 200 calls, synchronised at the end). Prints
-one JSON line with the card's name and power limit. Needs one card;
-imports nothing of JAX.
+time of one call (mean over 200 calls, synchronised at the end). At
+head dim 256 (16/16 heads, Gemma's): the forward at b 8, s 512 by CUDA
+events as above, and the dQ and dK/dV kernels at b 2, s 2048 by
+``torch.profiler`` as above. Prints one JSON line with the card's name
+and power limit. Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -65,9 +67,9 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.float32, device=dev)
 
-    def inputs(b, s):
-        return [torch.randn(b, s, h, D, generator=g, device=dev).to(dt)
-                for h in (H, KVH, KVH, H)]
+    def inputs(b, s, heads=(H, KVH, KVH, H), d=D):
+        return [torch.randn(b, s, h, d, generator=g, device=dev).to(dt)
+                for h in heads]
 
     def events_ms(fn, iters=20):
         for _ in range(3):
@@ -113,6 +115,18 @@ def main() -> None:
         ("flash_bwd_dq", "flash_bwd_dkv"), 10)
     out["dq_ms_b4_s2048"] = bwd["flash_bwd_dq"]
     out["dkv_ms_b4_s2048"] = bwd["flash_bwd_dkv"]
+    del q, k, v, do, o, lse
+
+    q, k, v, _ = inputs(8, 512, (16,) * 4, 256)
+    out["fwd_d256_ms_b8_s512"] = events_ms(
+        lambda: attention.flash_forward(q, k, v, True))
+    q, k, v, do = inputs(2, 2048, (16,) * 4, 256)
+    o, lse = attention.flash_forward(q, k, v, True)
+    bwd = profiled_ms(
+        lambda: attention.flash_backward(q, k, v, o, lse, do, True),
+        ("flash_bwd_dq", "flash_bwd_dkv"), 10)
+    out["dq_d256_ms_b2_s2048"] = bwd["flash_bwd_dq"]
+    out["dkv_d256_ms_b2_s2048"] = bwd["flash_bwd_dkv"]
     del q, k, v, do, o, lse
 
     S, G, page, maxp = 8, 4, 64, 16

@@ -5,17 +5,21 @@ on the CPU.
   ctypes signature in ``_build._SIGNATURES`` with the same arguments
   (pointers as ``c_void_p``): a mismatch would cut a pointer silently on
   the card.
-- ``flash_route`` sends each (dtype, head dim, device) to the wgmma
-  kernels, the scalar kernels (fp32, and bf16 at head dim 256), the
-  plain versions, or a ``ValueError``.
+- ``flash_route`` sends each (dtype, head dim, device, kernel) to the
+  wgmma kernels, the scalar kernels (fp32, bf16 at head dim 16 and 32,
+  and the bf16 dQ at head dim 256), the plain versions, or a
+  ``ValueError``.
 - The bf16 forward, dQ and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
-  ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``)
-  emulated in plain torch: fp32 products of bf16 inputs, the scale
-  applied to S in fp32 through exp2, 128-key tiles of online softmax in
-  the forward, and P (and dS) rounded to bf16 before the second
-  products. The emulation agrees with the Pallas kernels in interpret
-  mode on the same bf16 inputs within 2e-2 (atol and rtol): the
-  tolerance the card holds the kernels to (chip_smoke.py phase 1).
+  ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``) and the
+  head-dim-256 forward and dK/dV (``csrc/flash_fwd_sm90_d256.cu``,
+  ``csrc/flash_bwd_dkv_sm90_d256.cu``) emulated in plain torch: fp32
+  products of bf16 inputs, the scale applied to S in fp32 through exp2,
+  128-key (64 at d 256) tiles of online softmax in the forward, P (and
+  dS) rounded to bf16 before the second products, and at d 256 each half
+  of d's dK/dV accumulated on its own. The emulation agrees with the
+  Pallas kernels in interpret mode on the same bf16 inputs within 2e-2
+  (atol and rtol): the tolerance the card holds the kernels to
+  (chip_smoke.py phase 1).
 - The split-K paged kernel (``csrc/paged_attention.cu``) emulated in
   plain torch: fp32 partials ``(acc_i, m_i, l_i)`` over runs of pages,
   merged in split order. It agrees with the Pallas page-walk kernel in
@@ -99,19 +103,54 @@ _ROUTES = [
     (torch.bfloat16, 96, "cuda", None),
     (torch.float32, 256, "cuda", "scalar"),
     (torch.bfloat16, 128, "meta", None),
-    (torch.bfloat16, 256, "cuda", "scalar"),
+    (torch.bfloat16, 256, "cuda", "sm90"),
     (torch.float32, 96, "cuda", None),
     (torch.bfloat16, 512, "cuda", None),
+    (torch.float32, 16, "cuda", "scalar"),
+    (torch.bfloat16, 16, "cuda", "scalar"),
+    (torch.float32, 32, "cuda", "scalar"),
+    (torch.bfloat16, 32, "cuda", "scalar"),
+    (torch.bfloat16, 8, "cuda", None),
+    (torch.bfloat16, 16, "cpu", "plain"),
 ]
 
 
 @pytest.mark.parametrize("dtype,d,device,route", _ROUTES)
 def test_flash_route(dtype, d, device, route):
+    """The forward's route (``kernel`` defaults to ``"fwd"``)."""
     if route is None:
         with pytest.raises(ValueError):
             tattn.flash_route(dtype, d, device)
     else:
         assert tattn.flash_route(dtype, d, device) == route
+
+
+# each kernel's route at head dim 256 and below the wgmma tile: bf16 d 256
+# runs the wgmma forward and dK/dV and the scalar dQ
+_KERNEL_ROUTES = [
+    (torch.bfloat16, 256, "fwd", "sm90"),
+    (torch.bfloat16, 256, "dq", "scalar"),
+    (torch.bfloat16, 256, "dkv", "sm90"),
+    (torch.float32, 256, "fwd", "scalar"),
+    (torch.float32, 256, "dq", "scalar"),
+    (torch.float32, 256, "dkv", "scalar"),
+    (torch.bfloat16, 128, "dq", "sm90"),
+    (torch.bfloat16, 64, "dkv", "sm90"),
+    (torch.bfloat16, 16, "dq", "scalar"),
+    (torch.bfloat16, 32, "dkv", "scalar"),
+    (torch.float32, 16, "dkv", "scalar"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,kernel,route", _KERNEL_ROUTES)
+def test_flash_route_per_kernel(dtype, d, kernel, route):
+    assert tattn.flash_route(dtype, d, "cuda", kernel) == route
+    assert tattn.flash_route(dtype, d, "cpu", kernel) == "plain"
+
+
+def test_flash_route_rejects_unknown_kernel():
+    with pytest.raises(ValueError, match="unknown kernel"):
+        tattn.flash_route(torch.bfloat16, 128, "cuda", "bwd")
 
 
 # ------------------------------------------------- bf16 kernel arithmetic
@@ -129,9 +168,11 @@ def _visible(sq, sk):
     return qi + (sk - sq) >= torch.arange(sk)[None, :]
 
 
-def emulate_fwd_sm90(q, k, v, causal, scale):
+def emulate_fwd_sm90(q, k, v, causal, scale, tile=TILE):
     """The bf16 forward kernel's arithmetic on bf16 q [b, sq, H, d] and
-    k, v [b, sk, KVH, d]: returns (O bf16, lse fp32 [b*H, sq])."""
+    k, v [b, sk, KVH, d], online softmax over ``tile``-key tiles (128 in
+    ``flash_fwd_sm90.cu``, 64 in ``flash_fwd_sm90_d256.cu``): returns (O
+    bf16, lse fp32 [b*H, sq])."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qf = q.float()
@@ -141,17 +182,17 @@ def emulate_fwd_sm90(q, k, v, causal, scale):
     m = torch.full((b, h, sq, 1), -1e30)
     l = torch.zeros(b, h, sq, 1)
     acc = torch.zeros(b, h, sq, d)
-    for k0 in range(0, sk, TILE):
-        t = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + TILE])
+    for k0 in range(0, sk, tile):
+        t = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k0 + tile])
         t = t * (scale * LOG2E)
         if causal:
-            t = torch.where(vis[:, k0:k0 + TILE], t, -1e30)
+            t = torch.where(vis[:, k0:k0 + tile], t, -1e30)
         m_new = torch.maximum(m, t.amax(-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(t - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.einsum(
-            "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, k0:k0 + TILE])
+            "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, k0:k0 + tile])
         m = m_new
     l_safe = l.clamp_min(1e-30)
     out = (acc / l_safe).transpose(1, 2).bfloat16()
@@ -159,8 +200,11 @@ def emulate_fwd_sm90(q, k, v, causal, scale):
     return out, lse
 
 
-def emulate_dkv_sm90(q, k, v, o, lse, do, causal, scale):
-    """The bf16 dK/dV kernel's arithmetic: returns (dk, dv) in bf16."""
+def emulate_dkv_sm90(q, k, v, o, lse, do, causal, scale, halves=1):
+    """The bf16 dK/dV kernel's arithmetic: returns (dk, dv) in bf16. With
+    ``halves=2`` (``flash_bwd_dkv_sm90_d256.cu``) each half of d is
+    accumulated on its own, from the same bf16 P^T and dS^T, as the two
+    consumer warpgroups do."""
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
     qf, dof = q.float(), do.float()
@@ -172,8 +216,12 @@ def emulate_dkv_sm90(q, k, v, o, lse, do, causal, scale):
     if causal:
         p = torch.where(_visible(sq, sk), p, 0.0)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dof)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.bfloat16().float(), qf) * scale
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    w = d // halves
+    dv = torch.cat([torch.einsum("bhqk,bqhd->bkhd", pb, dof[..., i:i + w])
+                    for i in range(0, d, w)], -1)
+    dk = torch.cat([torch.einsum("bhqk,bqhd->bkhd", dsb, qf[..., i:i + w])
+                    for i in range(0, d, w)], -1) * scale
     dk = dk.reshape(b, sk, kvh, h // kvh, d).sum(3)
     dv = dv.reshape(b, sk, kvh, h // kvh, d).sum(3)
     return dk.bfloat16(), dv.bfloat16()
@@ -197,9 +245,9 @@ def emulate_dq_sm90(q, k, v, o, lse, do, causal, scale):
     return dq.bfloat16()
 
 
-def _bf16_inputs(case, seed):
+def _bf16_inputs(case, seed, cases=BF16_CASES):
     """Inputs as float32 numpy arrays whose values are bf16-exact."""
-    b, sq, sk, h, kvh, d, _ = BF16_CASES[case]
+    b, sq, sk, h, kvh, d, _ = cases[case]
     rng = np.random.default_rng(seed)
     shapes = [(b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d), (b, sq, h, d)]
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
@@ -269,6 +317,55 @@ def test_dq_sm90_arithmetic_matches_pallas_interpret(case):
     assert tuple(got_dq.shape) == want_dq.shape
     np.testing.assert_allclose(_f32(got_dq), _f32(want_dq), atol=2e-2,
                                rtol=2e-2)
+
+
+# the head-dim-256 kernels' cases: (b, sq, sk, heads, kv_heads, d, causal)
+D256_CASES = {
+    "causal_128": (1, 128, 128, 2, 1, 256, True),
+    "causal_256": (1, 256, 256, 2, 1, 256, True),
+    "noncausal_256": (1, 256, 256, 2, 1, 256, False),
+    "sq_lt_sk": (1, 128, 256, 2, 1, 256, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_fwd_sm90_d256_arithmetic_matches_pallas_interpret(case):
+    """``flash_fwd_sm90_d256.cu``'s arithmetic: 64-key tiles."""
+    q, k, v, _ = _bf16_inputs(case, seed=52, cases=D256_CASES)
+    causal = D256_CASES[case][-1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    want_o, want_lse = jattn._flash_forward(
+        _jbf16(q), _jbf16(k), _jbf16(v), causal, scale, 64, 64, True)
+    got_o, got_lse = emulate_fwd_sm90(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), causal, scale,
+        tile=64)
+    assert got_o.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got_o), _f32(want_o), atol=2e-2,
+                               rtol=2e-2)
+    np.testing.assert_allclose(_f32(got_lse), _f32(want_lse)[..., 0],
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_dkv_sm90_d256_arithmetic_matches_pallas_interpret(case):
+    """``flash_bwd_dkv_sm90_d256.cu``'s arithmetic: P^T and dS^T rounded
+    to bf16, each half of d accumulated on its own."""
+    q, k, v, g = _bf16_inputs(case, seed=62, cases=D256_CASES)
+    causal = D256_CASES[case][-1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    jq, jk, jv, jg = map(_jbf16, (q, k, v, g))
+    out, lse = jattn._flash_forward(jq, jk, jv, causal, scale, 64, 64, True)
+    _, want_dk, want_dv = jattn._flash_backward(
+        jq, jk, jv, out, lse, jg, causal, scale, 64, 64, True)
+    tq, tk, tv, tg = (torch.from_numpy(a).bfloat16() for a in (q, k, v, g))
+    to = torch.from_numpy(np.array(jnp.asarray(out, jnp.float32)))
+    tlse = torch.from_numpy(np.array(lse)[..., 0])
+    got_dk, got_dv = emulate_dkv_sm90(tq, tk, tv, to.bfloat16(), tlse, tg,
+                                      causal, scale, halves=2)
+    for name, got, want in (("dk", got_dk, want_dk), ("dv", got_dv, want_dv)):
+        assert tuple(got.shape) == want.shape, name
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2,
+                                   rtol=2e-2, err_msg=name)
 
 
 @pytest.mark.parametrize("case", sorted(BF16_CASES))
@@ -379,6 +476,8 @@ def test_split_pages_covers_the_table(slots, kv_heads, maxp, want):
     (96, 4, 64, False), (128, 3, 64, True), (128, 4, 8, False),
     (128, 7, 64, True), (256, 1, 64, True), (256, 8, 64, True),
     (128, 9, 64, False), (256, 4, 8, False),
+    (16, 2, 64, True), (32, 2, 64, True), (16, 8, 16, True),
+    (32, 1, 64, True), (48, 2, 64, False), (8, 2, 64, False),
 ])
 def test_paged_kernel_shapes(hd, group, page, ok):
     """On the card the wrapper raises before any launch for a head dim,
