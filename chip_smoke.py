@@ -7,9 +7,9 @@ Phases, each printing what it finds; any failure exits non-zero:
 
 0. the card's name and power limit; build the CUDA kernels from
    ray_tpu_torch/csrc (timed), with ptxas's registers and spills; the
-   five wgmma kernels (the bf16 flash forward, dQ and dK/dV at d 64/128,
-   the forward and dK/dV at d 256) must contain HGMMA instructions in the
-   built library's SASS (cuobjdump), and the two d-256 ones no spill.
+   six wgmma kernels (the bf16 flash forward, dQ and dK/dV at d 64/128
+   and at d 256) must contain HGMMA instructions in the built library's
+   SASS (cuobjdump), and the three d-256 ones no spill.
 1. each kernel against its plain PyTorch version on the card: the flash
    forward at the serving shapes, s 2048 and the training shape (b 4,
    s 2048, bf16), the flash backward (dQ and dK/dV) at b 1/4, s
@@ -27,14 +27,15 @@ Phases, each printing what it finds; any failure exits non-zero:
    function (scaled_dot_product_attention, its backward for the
    dQ/dK/dV pair), with the least time the card could take. The backward
    is timed at the training shape, the paged wrapper (its split and
-   merge launches) at the decode shape.
+   merge launches) at the decode shape; the fp32 scalar kernels at d 128
+   at the same shapes.
    Phase 1 also holds the paged kernel at the published shapes that
    Qwen2 and Gemma give it (G 7 under the row maximum 8 at hd 128 and
    64, G 1 and G 8 at hd 256; fp32 and bf16; the old contexts and a 64-page
    table; timed at the decode shape), the flash forward, dQ and dK/dV at
-   head dim 256 (16/16 heads; bf16 forward and dK/dV on the wgmma route,
-   the bf16 dQ and every fp32 launch on the scalar route; timed at b 8 x
-   s 512 and, the backward, b 2 x s 2048), and the head dims 16 and 32 of
+   head dim 256 (16/16 heads; every bf16 launch on the wgmma route, every
+   fp32 launch on the scalar route; timed at b 8 x s 512 and, the
+   backward, b 2 x s 2048), and the head dims 16 and 32 of
    the tiny presets (the scalar flash kernels, fp32 and bf16, and the
    paged kernel under every row maximum).
 2. fp32, 2 layers, at full Llama-3-8B, Qwen2-7B and Gemma-7B width: the
@@ -68,9 +69,8 @@ Phases, each printing what it finds; any failure exits non-zero:
 7. training GPT-2 125M whole (batch 8 x 1024), Mixtral-8x7B width cut
    to 2 layers (batch 4 x 2048) and Gemma-7B width cut to 4 layers
    (batch 2 x 2048), 5 AdamW steps each: losses fall, every layer's
-   forward, dQ and dK/dV run on their routes (all wgmma but Gemma's dQ,
-   which is scalar at head dim 256); step time, tokens/s, MFU, peak
-   memory.
+   forward, dQ and dK/dV run on their routes (all wgmma, Gemma's at head
+   dim 256 too); step time, tokens/s, MFU, peak memory.
 8. the tiny presets on the card (head dim 16): ``LLMEngine()`` and
    ``PagedLLMEngine()`` with their defaults (Llama tiny, fp32) answer
    prompts that pad to the 128 bucket with the same greedy transcripts,
@@ -82,7 +82,8 @@ Phases, each printing what it finds; any failure exits non-zero:
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
 3 and 6, of the backward kernels from phases 5 and 7's Gemma run, of
-the fp32 d-256 scalar kernels from phase 4's Gemma run);
+the fp32 scalar kernels from phase 2's Llama dense engine and phase 4's
+Llama and Gemma runs);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -231,9 +232,11 @@ def close(got: torch.Tensor, want: torch.Tensor, atol: float,
 WGMMA_KERNELS = {"flash_fwd_sm90_kernel": 2, "flash_bwd_dq_sm90_kernel": 2,
                  "flash_bwd_dkv_sm90_kernel": 2,
                  "flash_fwd_sm90_d256_kernel": 1,
+                 "flash_bwd_dq_sm90_d256_kernel": 1,
                  "flash_bwd_dkv_sm90_d256_kernel": 1}
 # the kernels that must build without a spill
 NO_SPILL_KERNELS = ("flash_fwd_sm90_d256_kernel",
+                    "flash_bwd_dq_sm90_d256_kernel",
                     "flash_bwd_dkv_sm90_d256_kernel")
 
 
@@ -320,12 +323,12 @@ def _ragged_cases(dts):
             for c in (True, False)]
 
 
-def flash_phase(dev) -> dict:
+def flash_phase(dev) -> list:
     from ray_tpu_torch.ops.attention import flash_forward, flash_forward_plain
 
     H, KVH = 32, 8
     g = torch.Generator(device=dev).manual_seed(1)
-    worst = 0.0
+    worst = worst_fp32 = 0.0   # bf16 (the wgmma kernel), fp32 (scalar)
     dts = (torch.float32, torch.bfloat16)
     cases = [(b, s, s, 128, c, dt) for dt in dts
              for b in (1, 8) for s in (128, 512) for c in (True, False)]
@@ -351,32 +354,50 @@ def flash_phase(dev) -> dict:
               flush=True)
         check(ok_o and ok_l, f"flash kernel disagrees with its plain "
               f"version (b={b} sq={sq} sk={sk} d={D} causal={causal} {dt})")
-        worst = max(worst, err_o, err_l)
+        if dt == torch.float32:
+            worst_fp32 = max(worst_fp32, err_o, err_l)
+        else:
+            worst = max(worst, err_o, err_l)
     sm90 = counters()["fwd_sm90"] - before["fwd_sm90"]
     check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 flash forward launches "
           f"took the wgmma kernel")
 
     # timing at the dense engine's largest prefill: 8 prompts in the
-    # 512 bucket, causal, bf16
+    # 512 bucket, causal; bf16 (the wgmma kernel, the row below) and fp32
+    # (the scalar kernel of the fp32 engines, phase 2)
     D = 128
-    b, s, dt = 8, 512, torch.bfloat16
-    q = torch.randn(b, s, H, D, generator=g, device=dev).to(dt)
-    k = torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
-    v = torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
-    ms = time_ms(lambda: flash_forward(q, k, v, True))
-    plain_ms = time_ms(lambda: flash_forward_plain(q, k, v, True), iters=5)
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+    b, s = 8, 512
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
     pairs = s * (s + 1) // 2                        # visible (q, k) pairs
     flops = 4.0 * b * H * pairs * D
-    nbytes = (2 * b * s * H * D + 2 * b * s * KVH * D) * 2 + b * H * s * 4
-    bnd, by = bound_ms(nbytes, flops, dt)
-    print(f"  flash timing b={b} s={s} causal bf16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by})", flush=True)
+    timed = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, s, H, D, generator=g, device=dev).to(dt)
+        k = torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
+        v = torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
+        ms = time_ms(lambda: flash_forward(q, k, v, True))
+        plain_ms = time_ms(lambda: flash_forward_plain(q, k, v, True),
+                           iters=5)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KVH, dim=2).transpose(1, 2).contiguous()
+        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+        size = q.element_size()
+        nbytes = ((2 * b * s * H * D + 2 * b * s * KVH * D) * size
+                  + b * H * s * 4)
+        bnd, by = bound_ms(nbytes, flops, dt)
+        print(f"  flash timing b={b} s={s} causal {str(dt)[6:]}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+              f"bound {bnd:.4f} ms ({by})", flush=True)
+        timed[dt] = (ms, plain_ms, lib_ms, bnd, by)
+    fp32_row = dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_by"), timed[torch.float32]))
+    fp32_row.update(name="flash_attention_fwd_scalar_d128", route="cuda",
+                    source="ray_tpu_torch/csrc/flash_fwd.cu",
+                    replaces="ray_tpu/ops/attention.py:78",
+                    max_abs_err=worst_fp32)
+    ms, plain_ms, lib_ms, bnd, by = timed[torch.bfloat16]
+    dt = torch.bfloat16
     # and at the training shape, checked and timed; the table's row keeps
     # the serving shape's time
     b, s = 4, 2048
@@ -408,11 +429,12 @@ def flash_phase(dev) -> dict:
     print(f"  flash timing b={b} s={s} causal bf16 (training shape): kernel "
           f"{t_ms:.4f} ms, plain {t_plain:.4f} ms, sdpa {t_lib:.4f} ms, "
           f"bound {t_bnd:.4f} ms ({t_by})", flush=True)
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "ray_tpu_torch/csrc/flash_fwd_sm90.cu",
-            "replaces": "ray_tpu/ops/attention.py:78",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms}
+    return [{"name": "flash_attention_fwd", "route": "cuda",
+             "source": "ray_tpu_torch/csrc/flash_fwd_sm90.cu",
+             "replaces": "ray_tpu/ops/attention.py:78",
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms},
+            fp32_row]
 
 
 def flash_bwd_phase(dev) -> list:
@@ -431,8 +453,8 @@ def flash_bwd_phase(dev) -> list:
         o, lse = flash_forward_plain(q.float(), k.float(), v.float(), causal)
         return q, k, v, o.to(dt).contiguous(), lse, do
 
-    worst = {"dq": 0.0, "dkv": 0.0}
     dts = (torch.float32, torch.bfloat16)
+    worst = {(k, dt): 0.0 for k in ("dq", "dkv") for dt in dts}
     cases = [(b, s, s, 128, c, dt) for dt in dts
              for b in (1, 4) for s in (128, 512, 2048) for c in (True, False)]
     cases += [(4, 128, 512, 128, True, dt) for dt in dts]
@@ -455,62 +477,77 @@ def flash_bwd_phase(dev) -> list:
         check(all(ok for ok, _ in res), f"flash backward kernels disagree "
               f"with their plain version (b={b} sq={sq} sk={sk} d={D} "
               f"causal={causal} {dt})")
-        worst["dq"] = max(worst["dq"], res[0][1])
-        worst["dkv"] = max(worst["dkv"], res[1][1], res[2][1])
+        worst["dq", dt] = max(worst["dq", dt], res[0][1])
+        worst["dkv", dt] = max(worst["dkv", dt], res[1][1], res[2][1])
         del q, k, v, o, lse, do, got, want
     for key, what in (("dq_sm90", "dQ"), ("dkv_sm90", "dK/dV")):
         sm90 = counters()[key] - before[key]
         check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 {what} launches "
               f"took the wgmma kernel")
 
-    # timing at the training shape: b 4, s 2048, causal, bf16
-    b, s, D, dt = 4, 2048, 128, torch.bfloat16
-    q, k, v, o, lse, do = inputs(b, s, s, D, True, dt)
-    ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
-                   ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"))
-    plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
-                                                    True), iters=3)
+    # timing at the training shape: b 4, s 2048, causal; bf16 (the wgmma
+    # kernels) and fp32 (the scalar kernels of the fp32 gradients, phase 4)
+    b, s, D = 4, 2048, 128
     G = H // KVH
-    qt = q.transpose(1, 2).detach().requires_grad_()
-    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).detach()
-    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach()
-    kt.requires_grad_()
-    vt.requires_grad_()
-    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                           is_causal=True)
-    dot = do.transpose(1, 2)
-    lib_ms = time_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), iters=10)
-    del out
     pairs = s * (s + 1) // 2                        # visible (q, k) pairs
-    ins = (2 * b * s * H * D + 2 * b * s * KVH * D) * 2 + 2 * b * H * s * 4
     rows = []
-    for name, key, flops, outs, src_line, src in (
-            ("flash_attention_bwd_dq", "flash_bwd_dq_sm90_kernel",
-             6.0 * b * H * pairs * D, b * s * H * D * 2, 207,
-             "ray_tpu_torch/csrc/flash_bwd_dq_sm90.cu"),
-            ("flash_attention_bwd_dkv", "flash_bwd_dkv_sm90_kernel",
-             8.0 * b * H * pairs * D, 2 * b * s * KVH * D * 2, 253,
-             "ray_tpu_torch/csrc/flash_bwd_dkv_sm90.cu")):
-        bnd, by = bound_ms(ins + outs, flops, dt)
-        print(f"  {name} timing b={b} s={s} causal bf16: kernel "
-              f"{ks[key]:.4f} ms, bound {bnd:.4f} ms ({by}); plain "
-              f"dq+dk+dv {plain_ms:.4f} ms, sdpa backward dq+dk+dv "
-              f"{lib_ms:.4f} ms", flush=True)
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": f"ray_tpu/ops/attention.py:{src_line}",
-                     "max_abs_err": worst[name.rsplit("_", 1)[1]],
-                     "ms": ks[key], "plain_ms": plain_ms, "bound_ms": bnd,
-                     "bound_by": by, "library_ms": lib_ms})
-    # both kernels recompute S and dP: one fused backward would do 10*d
-    # FLOPs a visible pair and query head, not the pair's 6*d + 8*d
-    fused, fused_by = bound_ms(ins + b * s * H * D * 2 + 2 * b * s * KVH * D
-                               * 2, 10.0 * b * H * pairs * D, dt)
-    split = rows[0]["bound_ms"] + rows[1]["bound_ms"]
-    pair = rows[0]["ms"] + rows[1]["ms"]
-    print(f"  flash backward floor b={b} s={s}: {fused:.4f} ms ({fused_by}) "
-          f"for one fused kernel, {split:.4f} ms for the dQ and dK/dV pair; "
-          f"the pair measured {pair:.4f} ms", flush=True)
+    for dt in (torch.bfloat16, torch.float32):
+        fp32 = dt == torch.float32
+        q, k, v, o, lse, do = inputs(b, s, s, D, True, dt)
+        keys = (("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if fp32 else
+                ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"))
+        ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
+                       keys)
+        plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
+                                                        True), iters=3)
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt = k.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+        vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+        kt.requires_grad_()
+        vt.requires_grad_()
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del out
+        size = q.element_size()
+        ins = ((2 * b * s * H * D + 2 * b * s * KVH * D) * size
+               + 2 * b * H * s * 4)
+        suffix = "_scalar_d128" if fp32 else ""
+        srcs = (("flash_bwd.cu",) * 2 if fp32 else
+                ("flash_bwd_dq_sm90.cu", "flash_bwd_dkv_sm90.cu"))
+        for kind, key, flops, outs, src_line, src in (
+                ("dq", keys[0], 6.0 * b * H * pairs * D, b * s * H * D * size,
+                 207, srcs[0]),
+                ("dkv", keys[1], 8.0 * b * H * pairs * D,
+                 2 * b * s * KVH * D * size, 253, srcs[1])):
+            name = f"flash_attention_bwd_{kind}{suffix}"
+            bnd, by = bound_ms(ins + outs, flops, dt)
+            print(f"  {name} timing b={b} s={s} causal {str(dt)[6:]}: "
+                  f"kernel {ks[key]:.4f} ms, bound {bnd:.4f} ms ({by}); "
+                  f"plain dq+dk+dv {plain_ms:.4f} ms, sdpa backward "
+                  f"dq+dk+dv {lib_ms:.4f} ms", flush=True)
+            rows.append({"name": name, "route": "cuda",
+                         "source": f"ray_tpu_torch/csrc/{src}",
+                         "replaces": f"ray_tpu/ops/attention.py:{src_line}",
+                         "max_abs_err": worst[kind, dt], "ms": ks[key],
+                         "plain_ms": plain_ms, "bound_ms": bnd,
+                         "bound_by": by, "library_ms": lib_ms})
+        if not fp32:
+            # both kernels recompute S and dP: one fused backward would do
+            # 10*d FLOPs a visible pair and query head, not the pair's 6*d
+            # + 8*d
+            fused, fused_by = bound_ms(
+                ins + b * s * H * D * size + 2 * b * s * KVH * D * size,
+                10.0 * b * H * pairs * D, dt)
+            split = rows[0]["bound_ms"] + rows[1]["bound_ms"]
+            pair = rows[0]["ms"] + rows[1]["ms"]
+            print(f"  flash backward floor b={b} s={s}: {fused:.4f} ms "
+                  f"({fused_by}) for one fused kernel, {split:.4f} ms for "
+                  f"the dQ and dK/dV pair; the pair measured {pair:.4f} ms",
+                  flush=True)
+        del q, k, v, o, lse, do, qt, kt, vt
     return rows
 
 
@@ -710,12 +747,11 @@ def paged_families_phase(dev, ctx_main) -> list:
 def flash_d256_phase(dev) -> list:
     """The flash forward, dQ and dK/dV at head dim 256 (Gemma's), fp32 and
     bf16, 16/16 heads, each against its plain version, with masks on
-    ragged lengths and sq < sk: the bf16 forward and dK/dV on the wgmma
-    route, the bf16 dQ and every fp32 launch on the scalar route. Timed
-    at the Gemma serving prefill (b 8 x s 512) and, for the backward, at
-    b 2 x s 2048, beside scaled_dot_product_attention and its backward:
-    the wgmma forward and dK/dV and the scalar dQ in bf16, the scalar
-    forward and dK/dV in fp32."""
+    ragged lengths and sq < sk: every bf16 launch on the wgmma route,
+    every fp32 launch on the scalar route. Timed at the Gemma serving
+    prefill (b 8 x s 512) and, for the backward, at b 2 x s 2048, beside
+    scaled_dot_product_attention and its backward: the wgmma kernels in
+    bf16, the scalar kernels in fp32."""
     from ray_tpu_torch.ops.attention import (flash_backward,
                                              flash_backward_plain,
                                              flash_forward,
@@ -772,10 +808,9 @@ def flash_d256_phase(dev) -> list:
           f"dQ {n['dq']} (wgmma {n['dq_sm90']}), dK/dV {n['dkv']} (wgmma "
           f"{n['dkv_sm90']})", flush=True)
     check(n["fwd"] == n["dq"] == n["dkv"] == total
-          and n["fwd_sm90"] == n["dkv_sm90"] == n_bf16
-          and n["dq_sm90"] == 0,
-          f"d-256 routes: want the {n_bf16} bf16 forward and dK/dV launches "
-          f"on wgmma and every dQ and fp32 launch scalar, got {n}")
+          and n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == n_bf16,
+          f"d-256 routes: want the {n_bf16} bf16 launches of each kernel "
+          f"on wgmma and every fp32 launch scalar, got {n}")
 
     rows = {}
     # the forward at the Gemma serving prefill: 8 prompts of 512, causal
@@ -804,8 +839,8 @@ def flash_d256_phase(dev) -> list:
                       "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
                       "library_ms": lib_ms}
         del q, k, v, qt, kt, vt
-    # the backward at b 2 x s 2048, causal: bf16 runs the scalar dQ and
-    # the wgmma dK/dV, fp32 the two scalar kernels
+    # the backward at b 2 x s 2048, causal: bf16 runs the two wgmma
+    # kernels, fp32 the two scalar kernels
     b, s = 2, 2048
     pairs = s * (s + 1) // 2
     for dt in dts:
@@ -813,10 +848,12 @@ def flash_d256_phase(dev) -> list:
         q, k, v, do = inputs(b, s, s, dt)
         o, lse = flash_forward_plain(q.float(), k.float(), v.float(), True)
         o = o.to(dt).contiguous()
-        dkv_kernel = ("flash_bwd_dkv_kernel" if fp32
-                      else "flash_bwd_dkv_sm90_d256_kernel")
+        dq_kernel, dkv_kernel = (
+            ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if fp32 else
+            ("flash_bwd_dq_sm90_d256_kernel",
+             "flash_bwd_dkv_sm90_d256_kernel"))
         ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
-                       ("flash_bwd_dq_kernel", dkv_kernel))
+                       (dq_kernel, dkv_kernel))
         plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
                                                         True), iters=3)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -828,14 +865,16 @@ def flash_d256_phase(dev) -> list:
         del out
         size = q.element_size()
         ins = 4 * b * s * H * D * size + 2 * b * H * s * 4
-        dkv_name, dkv_src = (
-            ("flash_attention_bwd_dkv_scalar", "flash_bwd.cu") if fp32 else
-            ("flash_attention_bwd_dkv_sm90_d256",
-             "flash_bwd_dkv_sm90_d256.cu"))
+        (dq_name, dq_src), (dkv_name, dkv_src) = (
+            (("flash_attention_bwd_dq_scalar", "flash_bwd.cu"),
+             ("flash_attention_bwd_dkv_scalar", "flash_bwd.cu")) if fp32 else
+            (("flash_attention_bwd_dq_sm90_d256",
+              "flash_bwd_dq_sm90_d256.cu"),
+             ("flash_attention_bwd_dkv_sm90_d256",
+              "flash_bwd_dkv_sm90_d256.cu")))
         for name, key, flops, outs, line, src, kind in (
-                ("flash_attention_bwd_dq_scalar", "flash_bwd_dq_kernel",
-                 6.0 * b * H * pairs * D, b * s * H * D * size, 207,
-                 "flash_bwd.cu", "dq"),
+                (dq_name, dq_kernel, 6.0 * b * H * pairs * D,
+                 b * s * H * D * size, 207, dq_src, "dq"),
                 (dkv_name, dkv_kernel, 8.0 * b * H * pairs * D,
                  2 * b * s * KVH * D * size, 253, dkv_src, "dkv")):
             bnd, by = bound_ms(ins + outs, flops, dt)
@@ -843,10 +882,6 @@ def flash_d256_phase(dev) -> list:
                   f"{str(dt)[6:]}: kernel {ks[key]:.4f} ms, bound "
                   f"{bnd:.4f} ms ({by}); plain dq+dk+dv {plain_ms:.4f} ms, "
                   f"sdpa backward dq+dk+dv {lib_ms:.4f} ms", flush=True)
-            # the table keeps the bf16 dQ (its main path) and the fp32
-            # dK/dV of the scalar kernel
-            if name == "flash_attention_bwd_dq_scalar" and fp32:
-                continue
             rows[name] = {"name": name, "route": "cuda",
                           "source": f"ray_tpu_torch/csrc/{src}",
                           "replaces": f"ray_tpu/ops/attention.py:{line}",
@@ -990,10 +1025,11 @@ def _model_config(cfg) -> dict:
             **{f.name: getattr(cfg, f.name) for f in fields(cfg)}}
 
 
-def fp32_phase(dev, cfg, name) -> None:
+def fp32_phase(dev, cfg, name) -> int:
     """fp32, ``cfg`` at 2 layers: the dense and paged engines' greedy
     transcripts are identical and every token is the argmax of a
-    cache-free forward through the reference attention."""
+    cache-free forward through the reference attention. Returns the dense
+    engine's flash forward launches."""
     from dataclasses import replace
 
     from ray_tpu_torch.models import llama
@@ -1049,6 +1085,7 @@ def fp32_phase(dev, cfg, name) -> None:
               f"argmax (logit gap {gap})")
     print(f"  fp32 2-layer {name}: transcripts agree with llama.forward",
           flush=True)
+    return fl
 
 
 # ------------------------------------------------------------ phases 4, 5
@@ -1529,9 +1566,8 @@ def train_families_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Gemma-7B width: head dim 256, the wgmma forward and dK/dV and the
-    # scalar dQ in bf16; profile_train's gemma_7b run, held to the
-    # published config
+    # Gemma-7B width: head dim 256, the wgmma forward, dQ and dK/dV in
+    # bf16; profile_train's gemma_7b run, held to the published config
     from dataclasses import replace
 
     from ray_tpu_torch.tools.profile_train import train_config
@@ -1580,9 +1616,9 @@ def main() -> None:
     lens = (100, 157, 214, 271, 328, 385, 442, 500)
     ctx_main = [m + 16 for m in lens]   # mid-decode history per slot
     print("phase 1: kernels against their plain versions", flush=True)
-    fwd = flash_phase(dev)
-    dq, dkv = flash_bwd_phase(dev)
-    kernels = [fwd, paged_phase(dev, ctx_main), dq, dkv]
+    kernels = flash_phase(dev)
+    kernels.append(paged_phase(dev, ctx_main))
+    kernels += flash_bwd_phase(dev)
     kernels += paged_families_phase(dev, ctx_main)
     kernels += flash_d256_phase(dev)
     flash_small_d_phase(dev)
@@ -1590,7 +1626,7 @@ def main() -> None:
           "Qwen2-7B, Gemma-7B", flush=True)
     from ray_tpu_torch.models.llama import LlamaConfig
 
-    fp32_phase(dev, LlamaConfig.llama3_8b(), "Llama-3-8B")
+    llama_fp32_fwd = fp32_phase(dev, LlamaConfig.llama3_8b(), "Llama-3-8B")
     for model in ("Qwen2-7B", "Gemma-7B"):
         fp32_phase(dev, published_config(model), model)
         gc.collect()
@@ -1603,7 +1639,7 @@ def main() -> None:
     print("phase 4: fp32 full width, 2 layers, gradients through the "
           "kernels: Llama-3-8B (head dim 128), then Gemma-7B (head dim "
           "256)", flush=True)
-    grad_phase(dev, LlamaConfig.llama3_8b())
+    llama_fp32 = grad_phase(dev, LlamaConfig.llama3_8b())
     gc.collect()
     torch.cuda.empty_cache()
     gemma_fp32 = grad_phase(dev, published_config("Gemma-7B"))
@@ -1623,17 +1659,22 @@ def main() -> None:
     tiny_phase(dev)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
-    # wgmma dK/dV and scalar dQ at d 256), the fp32 d-256 scalar forward's
-    # and dK/dV's from phase 4's Gemma run; the forward's training counts
+    # wgmma dQ and dK/dV at d 256), the fp32 scalar rows' from phase 2's
+    # Llama dense engine (the d-128 forward) and phase 4's Llama (the d-128
+    # dQ and dK/dV) and Gemma (d 256) runs; the forward's training counts
     # are printed in 5 and 7
     gemma_train = families["gemma"]
     launches.update(flash_attention_bwd_dq=train["flash_attention_bwd_dq"],
                     flash_attention_bwd_dkv=train["flash_attention_bwd_dkv"],
+                    flash_attention_fwd_scalar_d128=llama_fp32_fwd,
+                    flash_attention_bwd_dq_scalar_d128=llama_fp32["dq"],
+                    flash_attention_bwd_dkv_scalar_d128=llama_fp32["dkv"],
                     flash_attention_fwd_sm90_d256=gemma["fwd"],
                     flash_attention_fwd_scalar=gemma_fp32["fwd"],
                     paged_attention_gm8_hd128=qwen2["paged"],
                     paged_attention_gm1_hd256=gemma["paged"],
-                    flash_attention_bwd_dq_scalar=gemma_train["dq"],
+                    flash_attention_bwd_dq_sm90_d256=gemma_train["dq_sm90"],
+                    flash_attention_bwd_dq_scalar=gemma_fp32["dq"],
                     flash_attention_bwd_dkv_scalar=gemma_fp32["dkv"],
                     flash_attention_bwd_dkv_sm90_d256=gemma_train[
                         "dkv_sm90"])

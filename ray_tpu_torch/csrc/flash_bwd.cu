@@ -1,9 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a), the scalar kernels: dQ
 // and dK/dV for fp32 inputs at head dim 16, 32, 64, 128 and 256, and for
-// bf16 inputs at head dim 16 and 32 (bf16 storage, fp32 arithmetic); dQ
-// also for bf16 at head dim 256. bf16 at head dim 64 and 128 takes the
-// wgmma kernels fed by TMA (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu),
-// and bf16 dK/dV at head dim 256 flash_bwd_dkv_sm90_d256.cu.
+// bf16 inputs at head dim 16 and 32 (bf16 storage, fp32 arithmetic). bf16
+// at head dim 64 and 128 takes the wgmma kernels fed by TMA
+// (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu), and at head dim 256
+// flash_bwd_dq_sm90_d256.cu and flash_bwd_dkv_sm90_d256.cu.
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dq_kernel (pallas_call at
 // attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368), on
@@ -38,9 +38,8 @@
 // At head dim 256 (Gemma) the tiles halve to 32 query rows and 32 keys:
 // 64-row tiles would need 279,808 (dQ) and 296,448 (dK/dV) bytes of
 // shared memory against the 232,448 a block may take; 32-row tiles need
-// 135,808 and 140,032. There dQ is also the bf16 route, until a wgmma dQ
-// covers head dim 256. At head dims 16 and 32 (the tiny presets' widths,
-// below a wgmma tile's 64-column box) both are the bf16 route.
+// 135,808 and 140,032. At head dims 16 and 32 (the tiny presets' widths,
+// below a wgmma tile's 64-column box) both are also the bf16 route.
 
 #include "common.cuh"
 
@@ -394,7 +393,7 @@ bool bad_shape(int b, int sq, int sk, int H, int KVH) {
          b * H > 65535;
 }
 
-// The instances of head dim D: fp32, and bf16 at D <= 32 (dQ also at 256).
+// The instances of head dim D: fp32, and bf16 at D <= 32.
 template <int D>
 cudaError_t dq_d(int dtype, const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
@@ -403,7 +402,7 @@ cudaError_t dq_d(int dtype, const void* q, const void* k, const void* v,
   if (dtype == rtt::kFloat32)
     return launch_dq<float, D>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
                                KVH, causal, scale, st);
-  if constexpr (D <= 32 || D == 256) {
+  if constexpr (D <= 32) {
     if (dtype == rtt::kBFloat16)
       return launch_dq<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, b,
                                          sq, sk, H, KVH, causal, scale, st);
@@ -430,7 +429,7 @@ cudaError_t dkv_d(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16, 32 or 256.
+// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16 or 32.
 extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int dtype, int b,

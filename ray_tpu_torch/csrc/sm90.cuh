@@ -2,7 +2,8 @@
 // inline PTX: mbarriers, TMA tile loads, wgmma descriptors and products,
 // register hand-off between warpgroups, and the host-side encoding of
 // the TMA tensor maps. The kernels that use them are flash_fwd_sm90.cu,
-// flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu.
+// flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu, and their head-dim-256
+// versions (the _d256 files).
 //
 // Shared-memory tiles are bf16 [rows][64] boxes written by TMA with the
 // 128-byte swizzle: each row is 128 bytes, and the 16-byte chunks of row
@@ -136,11 +137,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
 // scale_d = 0 to overwrite D. RS: A from registers (the accumulator
 // fragment of an earlier product, rounded to bf16), B MN-major.
 //
-// Accumulator fragment (both N): thread t of the warpgroup, warp w = t/32,
+// Accumulator fragment (every N): thread t of the warpgroup, warp w = t/32,
 // lane l, holds d[4j + e] = D[16w + l/4 + 8*(e/2)][8j + 2*(l%4) + e%2].
 // The A fragment of k-step kk, from such an accumulator over the k dim:
 // a[0..3] = bf16 pairs of d[8kk + 0,1], d[8kk + 2,3], d[8kk + 4,5],
 // d[8kk + 6,7].
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                               uint64_t db, int scale_d) {

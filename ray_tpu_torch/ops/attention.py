@@ -15,14 +15,13 @@ tensor the kernels cannot take raises.
 head dim. bf16 on the card takes the Hopper kernels that run wgmma on
 bf16 tiles fed by TMA: at head dim 64 or 128 all three
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``,
-``csrc/flash_bwd_dkv_sm90.cu``); at head dim 256 (Gemma) the forward
-and dK/dV (``csrc/flash_fwd_sm90_d256.cu``,
-``csrc/flash_bwd_dkv_sm90_d256.cu``), while dQ stays on the scalar
-kernel. fp32 on the card takes the scalar kernels (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``), which hold fp32 to 1e-4 where a wgmma on fp32
-inputs would be TF32; so does bf16 at head dim 16 and 32 (the tiny
-presets' widths, below a wgmma tile's 64-column box), bf16 as storage
-with fp32 arithmetic.
+``csrc/flash_bwd_dkv_sm90.cu``); at head dim 256 (Gemma) all three
+too (``csrc/flash_fwd_sm90_d256.cu``, ``csrc/flash_bwd_dq_sm90_d256.cu``,
+``csrc/flash_bwd_dkv_sm90_d256.cu``). fp32 on the card takes the scalar
+kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which hold fp32
+to 1e-4 where a wgmma on fp32 inputs would be TF32; so does bf16 at head
+dim 16 and 32 (the tiny presets' widths, below a wgmma tile's 64-column
+box), bf16 as storage with fp32 arithmetic.
 
 ``flash_attention`` is the ``torch.autograd.Function`` over the two, the
 counterpart of the reference's ``custom_vjp``.
@@ -122,23 +121,23 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# head dims each route takes on the card; the wgmma route by kernel
+# head dims each route takes on the card, for each of the three kernels
+_KERNELS = ("fwd", "dq", "dkv")
 _SCALAR_HEAD_DIMS = (16, 32, 64, 128, 256)
-_SM90_HEAD_DIMS = {"fwd": (64, 128, 256), "dq": (64, 128),
-                   "dkv": (64, 128, 256)}
+_SM90_HEAD_DIMS = (64, 128, 256)
 
 
 def flash_route(dtype: torch.dtype, head_dim: int, device,
                 kernel: str = "fwd") -> str:
     """Which kernel computes ``kernel`` (``"fwd"``, ``"dq"`` or
     ``"dkv"``) for inputs of this dtype, head dim and device: ``"sm90"``
-    (bf16 on the card at head dim 64 or 128, and at 256 for the forward
-    and dK/dV: the wgmma kernels), ``"scalar"`` (on the card, fp32 at
-    head dim 16, 32, 64, 128 or 256, bf16 at 16 and 32, and the bf16 dQ
-    at 256: the scalar kernels, fp32 arithmetic), ``"plain"`` (the CPU:
+    (bf16 on the card at head dim 64, 128 or 256: the wgmma kernels),
+    ``"scalar"`` (on the card, fp32 at head dim 16, 32, 64, 128 or 256,
+    and bf16 at 16 and 32: the scalar kernels, fp32 arithmetic),
+    ``"plain"`` (the CPU:
     the plain PyTorch versions, any dtype and head dim). Anything else
     raises ``ValueError``: there is no fallback."""
-    if kernel not in _SM90_HEAD_DIMS:
+    if kernel not in _KERNELS:
         raise ValueError(f"flash attention: unknown kernel {kernel!r} "
                          "(fwd, dq or dkv)")
     kind = torch.device(device).type
@@ -152,7 +151,7 @@ def flash_route(dtype: torch.dtype, head_dim: int, device,
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"flash attention: dtype {dtype} not supported on "
                          "the card (float32 or bfloat16)")
-    if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS[kernel]:
+    if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS:
         return "sm90"
     return "scalar"
 
@@ -267,7 +266,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the cotangent ``do``. Each kernel's route is ``flash_route``'s: CPU
     tensors take ``flash_backward_plain``; CUDA tensors (contiguous)
     launch, on the current stream, the dQ kernel of
-    ``csrc/flash_bwd_dq_sm90.cu`` (route ``"sm90"``) or of
+    ``csrc/flash_bwd_dq_sm90.cu`` or, at head dim 256,
+    ``csrc/flash_bwd_dq_sm90_d256.cu`` (route ``"sm90"``), or of
     ``csrc/flash_bwd.cu`` (route ``"scalar"``), then the dK/dV kernel of
     ``csrc/flash_bwd_dkv_sm90.cu`` or, at head dim 256,
     ``csrc/flash_bwd_dkv_sm90_d256.cu`` (route ``"sm90"``), or of
@@ -312,7 +312,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if dq_route == "sm90":
+        if dq_route == "sm90" and d == 256:
+            err = lib.rtt_flash_bwd_dq_sm90_d256(*ins, dq.data_ptr(), *shape,
+                                                 *flags, stream)
+        elif dq_route == "sm90":
             err = lib.rtt_flash_bwd_dq_sm90(*ins, dq.data_ptr(), *shape, d,
                                             *flags, stream)
         else:    # the scalar entries take the dtype first

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import re
 import time
 from collections import defaultdict
 
@@ -42,7 +43,8 @@ from ray_tpu_torch.models import llama
 RUNS = {"llama3_8b": (8, 4, 2048), "gemma_7b": (4, 2, 2048)}
 LAYERS, BATCH, SEQ = RUNS["llama3_8b"]
 
-# the attention kernels, by name prefix (the wgmma and scalar routes)
+# the attention kernels, by name prefix (the wgmma and scalar routes; the
+# breakdown names the kernels each prefix matched)
 _KERNELS = {"flash forward (kernel 1)": "flash_fwd",
             "flash dQ (kernel 3)": "flash_bwd_dq",
             "flash dK/dV (kernel 4)": "flash_bwd_dkv"}
@@ -153,9 +155,12 @@ def main() -> None:
               f"{k[:100]}", flush=True)
     print("shares of device busy time:", flush=True)
     for label, key in _KERNELS.items():
-        us = sum(t for name, t in kt.items() if key in name)
+        hits = {name: t for name, t in kt.items() if key in name}
+        us = sum(hits.values())
+        # which kernel ran, by route: e.g. flash_bwd_dq_sm90_d256_kernel
+        ran = sorted({re.search(r"flash_\w+", n).group() for n in hits})
         print(f"  {us / 1e3:10.3f} ms  {100 * us / 1e3 / busy:5.1f}%  "
-              f"{label}", flush=True)
+              f"{label}: {', '.join(ran) or 'none'}", flush=True)
     for label, names in (("LM-head fp32 GEMMs (fwd + bwd)",
                           ("aten::mm", "aten::addmm", "aten::bmm")),
                          ("fp32 copies of _final_head", ("aten::copy_",))):

@@ -26,7 +26,10 @@ time of one call (mean over 200 calls, synchronised at the end). At
 head dim 256 (16/16 heads, Gemma's): the forward at b 8, s 512 by CUDA
 events as above, and the dQ and dK/dV kernels at b 2, s 2048 by
 ``torch.profiler`` as above. Prints one JSON line with the card's name
-and power limit. Needs one card; imports nothing of JAX.
+and power limit and the names of the kernels the profiler timed (which
+route each backward took: e.g. ``flash_bwd_dq_sm90_d256_kernel`` or the
+scalar ``flash_bwd_dq_kernel`` at head dim 256). Needs one card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -86,12 +90,14 @@ def main() -> None:
             total += start.elapsed_time(end)
         return total / iters
 
-    out = {"tree": args.tree, "card": _smi()}
+    out = {"tree": args.tree, "card": _smi(), "kernels": []}
     for name, (b, s) in (("fwd_ms_b8_s512", (8, 512)),
                          ("fwd_ms_b4_s2048", (4, 2048))):
         q, k, v, _ = inputs(b, s)
         out[name] = events_ms(lambda: attention.flash_forward(q, k, v, True))
     def profiled_ms(fn, keys, iters):
+        """{key: ms a call} of the kernels whose name holds ``key``; the
+        names they matched go to ``out["kernels"]``."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -106,6 +112,9 @@ def main() -> None:
             for key in keys:
                 if key in evt.name:
                     us[key] += evt.time_range.elapsed_us()
+                    ran = re.search(r"(flash|paged)_\w+", evt.name).group()
+                    if ran not in out["kernels"]:
+                        out["kernels"].append(ran)
         return {key: t / 1e3 / iters for key, t in us.items()}
 
     q, k, v, do = inputs(4, 2048)

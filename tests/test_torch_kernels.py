@@ -6,17 +6,17 @@ on the CPU.
   (pointers as ``c_void_p``): a mismatch would cut a pointer silently on
   the card.
 - ``flash_route`` sends each (dtype, head dim, device, kernel) to the
-  wgmma kernels, the scalar kernels (fp32, bf16 at head dim 16 and 32,
-  and the bf16 dQ at head dim 256), the plain versions, or a
-  ``ValueError``.
+  wgmma kernels, the scalar kernels (fp32, bf16 at head dim 16 and 32),
+  the plain versions, or a ``ValueError``.
 - The bf16 forward, dQ and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
-  ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``) and the
-  head-dim-256 forward and dK/dV (``csrc/flash_fwd_sm90_d256.cu``,
-  ``csrc/flash_bwd_dkv_sm90_d256.cu``) emulated in plain torch: fp32
-  products of bf16 inputs, the scale applied to S in fp32 through exp2,
-  128-key (64 at d 256) tiles of online softmax in the forward, P (and
-  dS) rounded to bf16 before the second products, and at d 256 each half
-  of d's dK/dV accumulated on its own. The emulation agrees with the
+  ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``) and
+  their head-dim-256 versions (``csrc/flash_fwd_sm90_d256.cu``,
+  ``csrc/flash_bwd_dq_sm90_d256.cu``, ``csrc/flash_bwd_dkv_sm90_d256.cu``)
+  emulated in plain torch: fp32 products of bf16 inputs, the scale
+  applied to S in fp32 through exp2, 128-key (64 at d 256) tiles of
+  online softmax in the forward, P (and dS) rounded to bf16 before the
+  second products, and at d 256 each half of d's dK/dV accumulated on
+  its own. The emulation agrees with the
   Pallas kernels in interpret mode on the same bf16 inputs within 2e-2
   (atol and rtol): the tolerance the card holds the kernels to
   (chip_smoke.py phase 1).
@@ -126,10 +126,10 @@ def test_flash_route(dtype, d, device, route):
 
 
 # each kernel's route at head dim 256 and below the wgmma tile: bf16 d 256
-# runs the wgmma forward and dK/dV and the scalar dQ
+# runs all three wgmma kernels
 _KERNEL_ROUTES = [
     (torch.bfloat16, 256, "fwd", "sm90"),
-    (torch.bfloat16, 256, "dq", "scalar"),
+    (torch.bfloat16, 256, "dq", "sm90"),
     (torch.bfloat16, 256, "dkv", "sm90"),
     (torch.float32, 256, "fwd", "scalar"),
     (torch.float32, 256, "dq", "scalar"),
@@ -228,8 +228,9 @@ def emulate_dkv_sm90(q, k, v, o, lse, do, causal, scale, halves=1):
 
 
 def emulate_dq_sm90(q, k, v, o, lse, do, causal, scale):
-    """The bf16 dQ kernel's arithmetic: P in exp2 from lse * log2 e, dS
-    rounded to bf16 before the dQ product; returns dq in bf16."""
+    """The bf16 dQ kernels' arithmetic (``flash_bwd_dq_sm90.cu`` and, at
+    d 256, ``flash_bwd_dq_sm90_d256.cu``): P in exp2 from lse * log2 e,
+    dS rounded to bf16 before the dQ product; returns dq in bf16."""
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
     qf, dof = q.float(), do.float()
@@ -299,10 +300,9 @@ def test_dkv_sm90_arithmetic_matches_pallas_interpret(case):
                                    rtol=2e-2, err_msg=name)
 
 
-@pytest.mark.parametrize("case", sorted(BF16_CASES))
-def test_dq_sm90_arithmetic_matches_pallas_interpret(case):
-    q, k, v, g = _bf16_inputs(case, seed=65)
-    causal = BF16_CASES[case][-1]
+def _check_dq_sm90_against_pallas(cases, case, seed):
+    q, k, v, g = _bf16_inputs(case, seed=seed, cases=cases)
+    causal = cases[case][-1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     jq, jk, jv, jg = map(_jbf16, (q, k, v, g))
     out, lse = jattn._flash_forward(jq, jk, jv, causal, scale, 64, 64, True)
@@ -317,6 +317,11 @@ def test_dq_sm90_arithmetic_matches_pallas_interpret(case):
     assert tuple(got_dq.shape) == want_dq.shape
     np.testing.assert_allclose(_f32(got_dq), _f32(want_dq), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_dq_sm90_arithmetic_matches_pallas_interpret(case):
+    _check_dq_sm90_against_pallas(BF16_CASES, case, seed=65)
 
 
 # the head-dim-256 kernels' cases: (b, sq, sk, heads, kv_heads, d, causal)
@@ -366,6 +371,15 @@ def test_dkv_sm90_d256_arithmetic_matches_pallas_interpret(case):
         assert tuple(got.shape) == want.shape, name
         np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-2,
                                    rtol=2e-2, err_msg=name)
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_dq_sm90_d256_arithmetic_matches_pallas_interpret(case):
+    """``flash_bwd_dq_sm90_d256.cu``'s arithmetic: dS rounded to bf16 per
+    element, dQ accumulated in fp32; its 32-key tiles and its two halves
+    of d change only the order of the fp32 sums, so the emulation is the
+    d-128 kernel's."""
+    _check_dq_sm90_against_pallas(D256_CASES, case, seed=67)
 
 
 @pytest.mark.parametrize("case", sorted(BF16_CASES))
