@@ -78,6 +78,32 @@ Phases, each printing what it finds; any failure exits non-zero:
    on the Llama, GPT-2 and Mixtral tiny presets through the kernels
    match the reference attention's gradients (1e-4 of each leaf's max).
    The counters show the d-16 flash and hd-16 paged kernels ran.
+9. disaggregated prefill/decode and the decode API. (a) fp32, 2 layers
+   at Llama-3-8B width, phase 3's requests: ``DisaggPagedEngine`` (2
+   prefill workers, divert floor 128, a 60 s handoff lease) gives the
+   ``PagedLLMEngine``'s greedy tokens with every prompt of 128 tokens
+   or more diverted and handed off, no page leaked, and again under a
+   dropped handoff and a killed worker (0.5 s lease; recovered, both
+   workers alive after). (b) bf16
+   Llama-3-8B, 32 layers, phase 3's weights and requests: the paged
+   engine, then the disaggregated one with its workers on streams of
+   their own; TTFT and ITL p50/p99 of each, the paged kernel's
+   launches, the staging pool's size; how many transcripts agree
+   (printed, not required in bf16). (c) ``prefill`` of one 512-token
+   prompt launches the flash forward once a layer and matches
+   ``prefill_batch`` (bf16 atol/rtol 2e-2); ``insert_sequence`` writes
+   a dense-cache slot exactly; ``init_shapes`` has ``init_params``'s
+   shapes and dtypes.
+10. the RL learners (PPO, IMPALA, APPO on the conv module at Catch's 10
+   x 10 x 1; DQN, CQL on the Q MLP and BC, MARWIL on the MLP at
+   CartPole's 4 / 2; SAC at Pendulum's 3 / 1), each built on the card
+   and on the CPU from the same parameters and given the same 3 batches
+   (PPO the same permutations, SAC the same noise): the first
+   gradients agree at atol 1e-5 / rtol 1e-4 and the parameters after
+   the 3 updates within 0.2 lr an optimizer step; the losses of each
+   update at rtol 1e-4 against a CPU learner that starts that update
+   from the card learner's state (``rl_phase`` says why); ms per
+   update on the card (median of 10).
 
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
@@ -1268,6 +1294,26 @@ def train_phase(dev) -> dict:
             "flash_attention_bwd_dkv": runs["dkv_sm90"]}
 
 
+# phase 3's engine settings and requests, which phase 9 serves again
+SERVE_8B = dict(model_config={"preset": "llama3_8b", "dtype": "bfloat16",
+                              "param_dtype": "bfloat16"},
+                num_slots=8, max_len=1024, prefill_buckets=[128, 512],
+                chunk_steps=8, max_new_tokens=32, eos_id=-1)
+SERVE_8B_LENS = (100, 157, 214, 271, 328, 385, 442, 500)
+
+
+def serve_8b_requests(vocab_size: int) -> tuple:
+    """Phase 3's 8 prompts (seed 12): the first 7, then the last, which
+    shares prompt 1's first 128 tokens (2 full pages of 64 that prompt 1
+    publishes to the prefix cache when it finishes)."""
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(1, vocab_size, m)]
+               for m in SERVE_8B_LENS]
+    prompts[7] = prompts[1][:128] + prompts[7][128:]
+    return ([(f"q{i}", prompts[i]) for i in range(7)],
+            [("q7", prompts[7])])
+
+
 def serve_8b_phase(dev) -> dict:
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.llm_engine import LLMEngine
@@ -1281,20 +1327,8 @@ def serve_8b_phase(dev) -> dict:
     n = llama.num_params(params)
     print(f"  Llama-3-8B bf16: {n / 1e9:.3f}e9 params on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rng = np.random.default_rng(12)
-    lens = (100, 157, 214, 271, 328, 385, 442, 500)
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, m)]
-               for m in lens]
-    # the last prompt shares prompt 1's first 128 tokens: 2 full pages of
-    # 64 that prompt 1 publishes to the prefix cache when it finishes
-    prompts[7] = prompts[1][:128] + prompts[7][128:]
-    first = [(f"q{i}", prompts[i]) for i in range(7)]
-    last = [("q7", prompts[7])]
-    kw = dict(model_config={"preset": "llama3_8b",
-                            "dtype": "bfloat16", "param_dtype": "bfloat16"},
-              num_slots=8, max_len=1024, prefill_buckets=[128, 512],
-              chunk_steps=8, max_new_tokens=32, eos_id=-1, params=params,
-              device=dev)
+    first, last = serve_8b_requests(cfg.vocab_size)
+    kw = dict(SERVE_8B, params=params, device=dev)
     result = {}
     for name, make in (("dense", lambda: LLMEngine(**kw)),
                        ("paged", lambda: PagedLLMEngine(page_size=64, **kw))):
@@ -1392,16 +1426,9 @@ def serve_family_phase(dev, model) -> dict:
           f"{L} layers, G {cfg.num_heads // cfg.num_kv_heads}, head_dim "
           f"{cfg.head_dim_}, on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    rng = np.random.default_rng(12)
-    lens = (100, 157, 214, 271, 328, 385, 442, 500)
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, m)]
-               for m in lens]
-    prompts[7] = prompts[1][:128] + prompts[7][128:]
-    first = [(f"q{i}", prompts[i]) for i in range(7)]
-    last = [("q7", prompts[7])]
-    kw = dict(model_config=_model_config(cfg), num_slots=8, max_len=1024,
-              prefill_buckets=[128, 512], chunk_steps=8, max_new_tokens=32,
-              eos_id=-1, params=params, device=dev)
+    first, last = serve_8b_requests(cfg.vocab_size)
+    kw = dict(SERVE_8B, model_config=_model_config(cfg), params=params,
+              device=dev)
     from ray_tpu_torch.ops.attention import flash_route
 
     sm90 = flash_route(cfg.dtype, cfg.head_dim_, dev, "fwd") == "sm90"
@@ -1591,6 +1618,499 @@ def train_families_phase(dev) -> dict:
     return runs
 
 
+# ---------------------------------------------------------- phases 9, 10
+
+
+def _latency_ms(out: dict) -> dict:
+    """TTFT and ITL (per generated token after the first) p50 and p99
+    over the requests, in ms."""
+    ttft = [r["ttft_s"] * 1e3 for r in out.values()]
+    itl = [(r["latency_s"] - r["ttft_s"]) / max(len(r["tokens"]) - 1, 1)
+           * 1e3 for r in out.values()]
+    return {"ttft_p50": float(np.percentile(ttft, 50)),
+            "ttft_p99": float(np.percentile(ttft, 99)),
+            "itl_p50": float(np.percentile(itl, 50)),
+            "itl_p99": float(np.percentile(itl, 99))}
+
+
+# the handoff lease of the runs without a fault: long enough that only a
+# lost handoff outlives it. Under the 5 s default a handoff that lands
+# late expires and is prefilled again locally, which costs latency only
+# but reads as a recovery; phase 9(b)'s handoffs reach the decode loop
+# seconds after submit, and the host's speed differs 2x between machines.
+CLEAN_LEASE_S = 60.0
+
+
+def _check_disagg(st: dict, n_diverted: int, what: str,
+                  recovered: bool = False) -> None:
+    check(st["disagg_diverted"] == n_diverted,
+          f"{what}: {st['disagg_diverted']} diverted, want {n_diverted}")
+    if recovered:
+        check(st["disagg_recovered"] >= 1, f"{what}: nothing recovered")
+    else:
+        check(st["disagg_handoffs"] == n_diverted
+              and st["disagg_recovered"] == 0,
+              f"{what}: {st['disagg_handoffs']} handoffs, "
+              f"{st['disagg_recovered']} recovered; want {n_diverted}, 0")
+    check(st["disagg_pending"] == 0, f"{what}: leases still pending")
+
+
+def _check_pool(eng, what: str) -> None:
+    alloc = eng._alloc
+    check(len(alloc.free) + len(alloc.lru) == alloc.num_pages,
+          f"{what}: {len(alloc.free)} free + {len(alloc.lru)} cached pages "
+          f"of {alloc.num_pages}: pages leaked")
+
+
+def _stop_disagg(eng) -> None:
+    stop(eng)
+    for th in eng._wthreads:
+        check(not th.is_alive(), "a prefill worker did not stop")
+
+
+def _serve_once(make, reqs_first, reqs_last, timeout_s):
+    eng = make()
+    out = drain(eng, reqs_first, timeout_s)
+    out.update(drain(eng, reqs_last, timeout_s))
+    return eng, out
+
+
+def disagg_fp32_phase(dev) -> None:
+    """9(a): fp32 Llama-3-8B width, 2 layers: the disaggregated engine
+    (2 prefill workers, divert floor 128) gives the plain paged engine's
+    greedy tokens on phase 3's requests, with every prompt of 128 tokens
+    or more diverted and handed off, and none lost or leaked under a
+    dropped handoff and a killed worker."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.core import fault_injection
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.disagg import DisaggPagedEngine
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    cfg = replace(llama.LlamaConfig.llama3_8b(), num_layers=2,
+                  dtype=torch.float32, param_dtype=torch.float32)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    first, last = serve_8b_requests(cfg.vocab_size)
+    n_div = sum(len(p) >= 128 for _, p in first + last)
+    kw = dict(SERVE_8B, model_config=_model_config(cfg), params=params,
+              device=dev, page_size=64)
+    eng, out = _serve_once(lambda: PagedLLMEngine(**kw), first, last, 120)
+    stop(eng)
+    want = {r: v["tokens"] for r, v in out.items()}
+    dkw = dict(kw, prefill_workers=2, divert_min_tokens=128)
+    runs = (("clean", None, CLEAN_LEASE_S), ("drop", "drop", 0.5),
+            ("kill_worker", "kill_worker", 0.5))
+    for name, action, timeout in runs:
+        if action is not None:
+            fault_injection.inject("prefill_handoff", action, times=1)
+        eng, out = _serve_once(
+            lambda: DisaggPagedEngine(handoff_timeout_s=timeout, **dkw),
+            first, last, 120)
+        fault_injection.clear()
+        got = {r: v["tokens"] for r, v in out.items()}
+        st = eng.stats()
+        if action == "kill_worker":
+            deadline = time.monotonic() + 10
+            while (eng.stats()["prefill_workers"] < 2
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            st = eng.stats()
+            check(st["prefill_workers"] == 2,
+                  f"kill_worker: {st['prefill_workers']} of 2 workers alive")
+        _stop_disagg(eng)
+        print(f"  fp32 2-layer disagg ({name}): tokens identical to the "
+              f"paged engine's: {got == want}; diverted "
+              f"{st['disagg_diverted']}, handoffs {st['disagg_handoffs']}, "
+              f"recovered {st['disagg_recovered']}, imported pages "
+              f"{st['disagg_imported_pages']}, workers alive "
+              f"{st['prefill_workers']}", flush=True)
+        check(got == want, f"fp32 disagg ({name}) tokens differ from the "
+              f"paged engine's:\n{got}\n{want}")
+        _check_disagg(st, n_div, f"fp32 disagg ({name})",
+                      recovered=action is not None)
+        _check_pool(eng, f"fp32 disagg ({name})")
+        del eng
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def disagg_serve_phase(dev) -> dict:
+    """9(b): bf16 Llama-3-8B, all 32 layers, phase 3's weights (seed 0)
+    and requests: the plain paged engine, then the disaggregated one (2
+    prefill workers on their own streams, divert floor 128). Returns the
+    latencies and the staging pool's size."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.disagg import DisaggPagedEngine
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    first, last = serve_8b_requests(cfg.vocab_size)
+    n_div = sum(len(p) >= 128 for _, p in first + last)
+    kw = dict(SERVE_8B, params=params, device=dev, page_size=64)
+    result = {}
+    for name in ("paged", "disagg"):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        counters_reset()
+        if name == "paged":
+            eng = PagedLLMEngine(**kw)
+        else:
+            eng = DisaggPagedEngine(prefill_workers=2,
+                                    divert_min_tokens=128,
+                                    handoff_timeout_s=CLEAN_LEASE_S, **kw)
+            deadline = time.monotonic() + 30
+            while len(eng._wstates) < 2 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            check(len(eng._wstates) == 2, "prefill workers did not start")
+            streams = [ws["stream"] for ws in eng._wstates.values()]
+            check(all(s is not None and s != torch.cuda.default_stream(dev)
+                      for s in streams) and streams[0] != streams[1],
+                  "prefill workers do not run on streams of their own")
+        torch.cuda.synchronize()
+        pool_mib = (torch.cuda.memory_allocated() - before) / 2**20
+        t1 = time.perf_counter()
+        out = drain(eng, first, 300)
+        out.update(drain(eng, last, 120))
+        wall = time.perf_counter() - t1
+        st = eng.stats()
+        n = counters()
+        if name == "disagg":
+            staging = sum(t.numel() * t.element_size()
+                          for t in eng._wstates[0]["cache"].values()) / 2**20
+            _stop_disagg(eng)
+            _check_disagg(st, n_div, "8B bf16 disagg")
+        else:
+            stop(eng)
+        _check_pool(eng, f"8B bf16 {name}")
+        del eng
+        torch.cuda.empty_cache()
+        for rid, res in out.items():
+            check(len(res["tokens"]) == 32,
+                  f"{name} {rid}: {len(res['tokens'])} tokens, want 32")
+        check(n["paged"] > 0 and n["paged_merge"] == n["paged"],
+              f"8B {name}: paged split/merge launches {n['paged']}/"
+              f"{n['paged_merge']}")
+        lat = _latency_ms(out)
+        print(f"  8B bf16 {name}: 8 requests x 32 tokens in {wall:.2f} s; "
+              f"TTFT p50 {lat['ttft_p50']:.2f} ms p99 "
+              f"{lat['ttft_p99']:.2f} ms; ITL p50 {lat['itl_p50']:.3f} ms "
+              f"p99 {lat['itl_p99']:.3f} ms; paged launches {n['paged']}; "
+              f"device memory allocated by the engine {pool_mib:.1f} MiB",
+              flush=True)
+        if name == "disagg":
+            print(f"  8B bf16 disagg: diverted {st['disagg_diverted']}, "
+                  f"handoffs {st['disagg_handoffs']}, recovered "
+                  f"{st['disagg_recovered']}, imported pages "
+                  f"{st['disagg_imported_pages']}; staging pool "
+                  f"{staging:.1f} MiB per worker (2 workers)", flush=True)
+        result[name] = {"tokens": {r: v["tokens"] for r, v in out.items()},
+                        "latency_ms": lat, "paged": n["paged"],
+                        "engine_mib": pool_mib}
+    same = sum(result["paged"]["tokens"][r] == result["disagg"]["tokens"][r]
+               for r in result["paged"]["tokens"])
+    print(f"  8B bf16: disagg and paged transcripts identical for {same}/8 "
+          f"requests (not required in bf16: the chunk boundaries differ)",
+          flush=True)
+    result["staging_mib"] = staging
+    return result
+
+
+def decode_api_phase(dev) -> None:
+    """9(c): bf16 Llama-3-8B, 32 layers: ``prefill`` of one 512-token
+    prompt launches the flash forward once a layer and agrees with
+    ``prefill_batch`` and with the reference attention's ``prefill``;
+    ``insert_sequence`` writes its K/V into a dense cache exactly;
+    ``init_shapes`` has ``init_params``'s shapes and dtypes."""
+    from dataclasses import replace
+
+    from ray_tpu_torch.models import llama, llama_decode
+
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    shapes = dict(llama.param_leaves(llama.init_shapes(cfg)))
+    real = dict(llama.param_leaves(params))
+    check(sorted(shapes) == sorted(real) and all(
+        shapes[k].is_meta and shapes[k].shape == real[k].shape
+        and shapes[k].dtype == real[k].dtype for k in real),
+        "init_shapes differs from init_params")
+    toks = torch.tensor(np.random.default_rng(15).integers(
+        1, cfg.vocab_size, (1, 512)), dtype=torch.int32, device=dev)
+    counters_reset()
+    logits, kv, x = llama_decode.prefill(cfg, params, toks)
+    torch.cuda.synchronize()
+    n = counters()
+    check(n["fwd"] == cfg.num_layers and n["fwd_sm90"] == n["fwd"],
+          f"prefill: {n['fwd']} flash launches ({n['fwd_sm90']} wgmma), "
+          f"want {cfg.num_layers} on the wgmma route")
+    check(tuple(logits.shape) == (512, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and tuple(kv["k"].shape) == (cfg.num_layers, 512, 8, 128)
+          and bool(torch.isfinite(logits).all()),
+          "prefill: wrong shapes or non-finite logits")
+    blog, bkv = llama_decode.prefill_batch(
+        cfg, params, toks, torch.tensor([511], device=dev))
+    errs = {}
+    for what, got, want in (("logits", logits[511], blog[0]),
+                            ("k", kv["k"], bkv["k"][:, 0]),
+                            ("v", kv["v"], bkv["v"][:, 0])):
+        ok, errs[what] = close(got, want, 2e-2, 2e-2)
+        check(ok, f"prefill {what} differs from prefill_batch: "
+              f"{errs[what]:.3e}")
+    # printed, not asserted: the two attentions round differently in
+    # bf16 and 32 layers carry the difference on (phase 1 holds the
+    # kernel to its plain version)
+    rlog, rkv, _ = llama_decode.prefill(
+        replace(cfg, prefill_flash=False), params, toks)
+    ref_err = {what: close(got, want, 0.0, 0.0)[1]
+               for what, got, want in (("logits", logits, rlog),
+                                       ("k", kv["k"], rkv["k"]),
+                                       ("v", kv["v"], rkv["v"]))}
+    cache = llama_decode.init_cache(cfg, 2, 1024, dev)
+    llama_decode.insert_sequence(cache, kv, 1)
+    check(all(torch.equal(cache[n_][:, 1, :512], kv[n_]) for n_ in "kv")
+          and not cache["k"][:, 0].any() and not cache["k"][:, 1,
+                                                           512:].any(),
+          "insert_sequence did not write the slot exactly")
+    print(f"  decode API: prefill of 512 tokens launched the flash forward "
+          f"{n['fwd']} times (wgmma {n['fwd_sm90']}); against prefill_batch "
+          f"max|d| logits {errs['logits']:.3e} k {errs['k']:.3e} v "
+          f"{errs['v']:.3e}; against the reference attention (printed "
+          f"only) logits "
+          f"{ref_err['logits']:.3e} k {ref_err['k']:.3e} v "
+          f"{ref_err['v']:.3e}; insert_sequence exact; init_shapes matches "
+          f"{len(real)} leaves", flush=True)
+    del params, cache, logits, kv, x, blog, bkv, rlog, rkv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the RL learners of phase 10: name -> (learner factory, batch maker,
+# update call, optimizer steps per update, learning rate)
+def _rl_cases():
+    from ray_tpu_torch.rllib import (appo, dqn, impala, learner, offline,
+                                     rl_module, sac)
+
+    catch = (10, 10, 1)
+    rng = np.random.default_rng(16)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+
+    def ppo_batch(n=4096, d=100, a=3):
+        return {"obs": f32(n, d), "actions": rng.integers(0, a, n),
+                "logp_old": np.full(n, np.log(1 / a), np.float32)
+                + 0.1 * f32(n), "advantages": f32(n), "returns": f32(n)}
+
+    def impala_batch(T=32, N=128, d=100, a=3):
+        dones = rng.random((T, N)) < 0.05
+        return {"obs": f32(T, N, d), "next_obs": f32(T, N, d),
+                "actions": rng.integers(0, a, (T, N)),
+                "behavior_logits": f32(T, N, a), "rewards": f32(T, N),
+                "dones": dones, "terminateds": dones & (rng.random((T, N))
+                                                        < 0.5)}
+
+    def q_batch(lead, d=4, a=2):
+        return {"obs": f32(*lead, d), "next_obs": f32(*lead, d),
+                "actions": rng.integers(0, a, lead), "rewards": f32(*lead),
+                "dones": (rng.random(lead) < 0.05).astype(np.float32)}
+
+    def sac_batch(U=4, B=4096):
+        return {"obs": f32(U, B, 3), "next_obs": f32(U, B, 3),
+                "actions": rng.uniform(-2, 2, (U, B)).astype(np.float32),
+                "rewards": f32(U, B),
+                "dones": np.zeros((U, B), np.float32)}
+
+    def bc_batch(n=4096):
+        b = ppo_batch(n, 4, 2)
+        return {"obs": b["obs"], "actions": b["actions"],
+                "returns": b["returns"]}
+
+    cnn = lambda: rl_module.CNNModule(catch, 3)   # noqa: E731
+    qmlp = lambda: rl_module.QMLPModule(4, 2)     # noqa: E731
+    mlp = lambda: rl_module.MLPModule(4, 2)       # noqa: E731
+    perm_rng = np.random.default_rng(17)
+    ppo_perms = lambda: np.stack([perm_rng.permutation(4096)  # noqa: E731
+                                  for _ in range(10)]).reshape(10, 8, 512)
+    noise = lambda: rng.normal(size=(4, 2, 4096, 1)).astype(  # noqa: E731
+        np.float32)
+    return {
+        "PPO (CNN, Catch)": (
+            lambda d, p: learner.PPOLearner(cnn(), minibatch_size=512,
+                                            device=d, params=p),
+            ppo_batch, lambda lrn, b, x: lrn.update(b, perms=x), ppo_perms,
+            80, 3e-4),
+        "IMPALA (CNN, Catch)": (
+            lambda d, p: impala.ImpalaLearner(cnn(), device=d, params=p),
+            impala_batch, lambda lrn, b, x: lrn.update(b), None, 1, 6e-4),
+        "APPO (CNN, Catch)": (
+            lambda d, p: appo.AppoLearner(cnn(), lr=3e-4, device=d,
+                                          params=p),
+            impala_batch, lambda lrn, b, x: lrn.update(b), None, 1, 3e-4),
+        "DQN (QMLP, CartPole)": (
+            lambda d, p: dqn.DQNLearner(qmlp(), device=d, params=p),
+            lambda: q_batch((4, 4096)),
+            lambda lrn, b, x: {"loss": lrn.update_many(b)[0]}, None, 4,
+            1e-3),
+        "CQL (QMLP, CartPole)": (
+            lambda d, p: offline.CQLLearner(qmlp(), device=d, params=p),
+            lambda: q_batch((4096,)),
+            lambda lrn, b, x: {"loss": lrn.update(b)}, None, 1, 1e-3),
+        "BC (MLP, CartPole)": (
+            lambda d, p: offline.BCLearner(mlp(), device=d, params=p),
+            bc_batch, lambda lrn, b, x: {"loss": lrn.update(b)}, None, 1,
+            1e-3),
+        "MARWIL (MLP, CartPole)": (
+            lambda d, p: offline.MARWILLearner(mlp(), device=d, params=p),
+            bc_batch, lambda lrn, b, x: {"loss": lrn.update(b)}, None, 1,
+            1e-3),
+        "SAC (Pendulum)": (
+            lambda d, p: sac.SACLearner(
+                rl_module.SquashedGaussianModule(3, 1, -2.0, 2.0),
+                rl_module.TwinQModule(3, 1), device=d, params=p),
+            sac_batch, lambda lrn, b, x: lrn.update_many(b, noise=x), noise,
+            4, 3e-4),
+    }
+
+
+def _rl_params(lrn):
+    """A learner's weights as the tree its ``params=`` takes."""
+    from ray_tpu_torch.rllib.rl_module import to_numpy
+
+    if hasattr(lrn, "critic"):
+        return {"pi": to_numpy(lrn.actor), "q": to_numpy(lrn.critic)}
+    return to_numpy(lrn.module)
+
+
+def _rl_state(lrn) -> dict:
+    """Every trained tensor of a learner, by dotted path."""
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    state = tree_leaves(_rl_params(lrn))
+    if hasattr(lrn, "log_alpha"):
+        state["log_alpha"] = lrn.log_alpha.detach().cpu().numpy()
+    return state
+
+
+def _rl_copy_state(dst, src) -> None:
+    """Set learner ``dst`` to ``src``'s state across devices: every
+    network, optimizer (moments and step count), trained tensor and
+    counter. The state dicts are copied first, so that the two learners
+    share no tensor (a CPU optimizer would otherwise adopt the other's
+    step tensor)."""
+    import copy
+
+    for name, val in vars(src).items():
+        if isinstance(val, (torch.nn.Module, torch.optim.Optimizer)):
+            getattr(dst, name).load_state_dict(
+                copy.deepcopy(val.state_dict()))
+        elif isinstance(val, torch.Tensor):
+            with torch.no_grad():
+                getattr(dst, name).copy_(val)
+        elif isinstance(val, (int, float)) and not isinstance(val, bool):
+            setattr(dst, name, val)
+
+
+def _rl_grads(lrn) -> dict:
+    """Attach a hook keeping the first gradients of each kind."""
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    store = {}
+
+    def hook(kind, g):
+        store.setdefault(kind, tree_leaves(g))
+    lrn.grad_hook = hook
+    return store
+
+
+def rl_phase(dev) -> dict:
+    """10: each learner built on the card and on the CPU from the same
+    parameters, 3 updates on the same seeded batches (and the same
+    permutations or noise): the first gradients agree, and so do the
+    parameters after the 3 updates; the losses agree update by update,
+    each against a CPU learner that starts that update from the card
+    learner's state; ms per update on the card.
+
+    Why the losses are held update by update: two devices round
+    differently, and a free-running trajectory amplifies that. A weight
+    whose gradient is within rounding of zero takes Adam steps of up to
+    lr whose sign the rounding picks, and a PPO sample whose ratio lies
+    within rounding of 1 +- clip switches the branch of the clipped
+    surrogate. Over PPO's 240 optimizer steps (3 updates of 80) such
+    events move its third update's losses past rtol 1e-4 while the
+    parameters stay inside their bound; the free-running difference is
+    printed beside the held one. cuDNN runs its deterministic
+    algorithms here, so that two runs of the phase read the same
+    numbers."""
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    for name, (make, make_batch, call, extra, steps, lr) in \
+            _rl_cases().items():
+        params = _rl_params(make("cpu", None))
+        batches = [make_batch() for _ in range(3)]
+        extras = [extra() if extra else None for _ in range(3)]
+        torch.backends.cudnn.deterministic = True
+        lrns = {"card": make(dev, params), "cpu": make("cpu", params)}
+        anchor = make("cpu", params)
+        grads = {d: _rl_grads(lrns[d]) for d in lrns}
+        loss_err = free_err = 0.0
+        for u, (b, x) in enumerate(zip(batches, extras)):
+            _rl_copy_state(anchor, lrns["card"])
+            mc = call(lrns["card"], b, x)
+            mp = call(anchor, b, x)
+            mf = call(lrns["cpu"], b, x)
+            for k in mp:
+                loss_err = max(loss_err, abs(mc[k] - mp[k])
+                               / max(abs(mp[k]), 1e-30))
+                free_err = max(free_err, abs(mc[k] - mf[k])
+                               / max(abs(mf[k]), 1e-30))
+                check(abs(mc[k] - mp[k]) <= 1e-4 * abs(mp[k]),
+                      f"{name}: update {u + 1} {k} {mc[k]} on the card, "
+                      f"{mp[k]} on the CPU from the same state")
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+        grad_err = 0.0
+        for kind in grads["cpu"]:
+            for leaf, want in grads["cpu"][kind].items():
+                got = grads["card"][kind][leaf]
+                d = np.abs(got - want)
+                grad_err = max(grad_err, float(d.max()))
+                check(bool((d <= 1e-5 + 1e-4 * np.abs(want)).all()),
+                      f"{name}: first {kind} gradient {leaf} differs by "
+                      f"{float(d.max()):.3e}")
+        sc, sp = _rl_state(lrns["card"]), _rl_state(lrns["cpu"])
+        bound = 0.2 * lr * steps * 3
+        param_err = max(float(np.abs(sc[k] - sp[k]).max()) for k in sp)
+        check(param_err <= bound, f"{name}: parameters differ by "
+              f"{param_err:.3e} after 3 updates (bound {bound:.3e})")
+        # ms per update on the card: median of 10 after 2 warm-ups
+        lrn = lrns["card"]
+        lrn.grad_hook = None
+        times = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(lrn, batches[i % 3], extras[i % 3])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times[2:])
+        print(f"  {name}: card vs CPU over 3 updates ({steps} optimizer "
+              f"steps each): max rel |d loss| {loss_err:.3e} update by "
+              f"update ({free_err:.3e} free-running, printed only), "
+              f"first-grad "
+              f"max|d| {grad_err:.3e}, params max|d| {param_err:.3e} "
+              f"(bound {bound:.3e}); {ms:.3f} ms per update on the card",
+              flush=True)
+        out[name] = ms
+        del lrns, lrn, anchor
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1613,8 +2133,7 @@ def main() -> None:
           f"{torch.version.cuda}", flush=True)
     build_phase()
 
-    lens = (100, 157, 214, 271, 328, 385, 442, 500)
-    ctx_main = [m + 16 for m in lens]   # mid-decode history per slot
+    ctx_main = [m + 16 for m in SERVE_8B_LENS]  # mid-decode history
     print("phase 1: kernels against their plain versions", flush=True)
     kernels = flash_phase(dev)
     kernels.append(paged_phase(dev, ctx_main))
@@ -1657,6 +2176,13 @@ def main() -> None:
     families = train_families_phase(dev)
     print("phase 8: the tiny presets (head dim 16) on the card", flush=True)
     tiny_phase(dev)
+    print("phase 9: disaggregated prefill/decode and the decode API: "
+          "Llama-3-8B fp32 2 layers, then bf16 32 layers", flush=True)
+    disagg_fp32_phase(dev)
+    disagg_serve_phase(dev)
+    decode_api_phase(dev)
+    print("phase 10: the RL learners, card against CPU", flush=True)
+    rl_phase(dev)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 scalar rows' from phase 2's

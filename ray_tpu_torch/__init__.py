@@ -1,5 +1,5 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's models, serving
-engines and training step.
+engines, training step and RL learners.
 
 The JAX package ``ray_tpu`` is the reference; this package computes the
 same functions with PyTorch on an NVIDIA Hopper card, and every Pallas
@@ -12,7 +12,10 @@ has an obvious counterpart:
     ops/paged_attention.py  <-> ray_tpu/ops/paged_attention.py (kernel)
     models/llama.py, llama_decode.py, llama_paged.py, gpt2.py,
     mixtral.py, hf_weights.py
-    serve/llm_engine.py, serve/paged_engine.py
+    serve/llm_engine.py, serve/paged_engine.py, serve/disagg.py
+    core/config.py, core/fault_injection.py (the slices serving reads)
+    rllib/rl_module.py, learner.py, impala.py, appo.py, dqn.py,
+    sac.py, offline.py (the learners)
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of silently running on

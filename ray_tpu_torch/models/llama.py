@@ -170,6 +170,42 @@ def trunc_normal_init(gen: torch.Generator, shape, fan_in: int,
     return out
 
 
+def _param_layout(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Every parameter leaf as ``(shape, init)``, in the order
+    ``init_params`` draws them: ``init`` is the fan-in of a
+    truncated-normal leaf, or ``"ones"`` / ``"zeros"``."""
+    h, ffn, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    hd = cfg.head_dim_
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    layout = {
+        "embed": ((cfg.vocab_size, h), h),
+        "layers": {
+            "attn_norm": ((L, h), "ones"),
+            "wq": ((L, h, qd), h),
+            "wk": ((L, h, kvd), h),
+            "wv": ((L, h, kvd), h),
+            "wo": ((L, qd, h), qd),
+            "mlp_norm": ((L, h), "ones"),
+            "w_gate": ((L, h, ffn), h),
+            "w_up": ((L, h, ffn), h),
+            "w_down": ((L, ffn, h), ffn),
+        },
+        "final_norm": ((h,), "ones"),
+    }
+    if cfg.attn_qkv_bias:
+        layout["layers"].update(bq=((L, qd), "zeros"),
+                                bk=((L, kvd), "zeros"),
+                                bv=((L, kvd), "zeros"))
+    if not cfg.tie_embeddings:
+        layout["lm_head"] = ((h, cfg.vocab_size), h)
+    return layout
+
+
+def _map_layout(layout, fn):
+    return {k: _map_layout(v, fn) if isinstance(v, dict) else fn(*v)
+            for k, v in layout.items()}
+
+
 def init_params(cfg: LlamaConfig, seed: int = 0,
                 device=None) -> Dict[str, Any]:
     """Truncated-normal (+-3 sigma) fan-in-scaled weights in
@@ -180,38 +216,25 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    h, ffn, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    hd = cfg.head_dim_
-    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
 
-    def norm_init(shape, fan_in):
-        return trunc_normal_init(gen, shape, fan_in, cfg.param_dtype)
+    def make(shape, init):
+        if init == "ones":
+            return torch.ones(shape, dtype=cfg.param_dtype, device=device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=cfg.param_dtype, device=device)
+        return trunc_normal_init(gen, shape, init, cfg.param_dtype)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=cfg.param_dtype, device=device)
+    return _map_layout(_param_layout(cfg), make)
 
-    params = {
-        "embed": norm_init((cfg.vocab_size, h), h),
-        "layers": {
-            "attn_norm": ones((L, h)),
-            "wq": norm_init((L, h, qd), h),
-            "wk": norm_init((L, h, kvd), h),
-            "wv": norm_init((L, h, kvd), h),
-            "wo": norm_init((L, qd, h), qd),
-            "mlp_norm": ones((L, h)),
-            "w_gate": norm_init((L, h, ffn), h),
-            "w_up": norm_init((L, h, ffn), h),
-            "w_down": norm_init((L, ffn, h), ffn),
-        },
-        "final_norm": ones((h,)),
-    }
-    if cfg.attn_qkv_bias:
-        zeros = lambda n: torch.zeros((L, n), dtype=cfg.param_dtype,  # noqa: E731
-                                      device=device)
-        params["layers"].update(bq=zeros(qd), bk=zeros(kvd), bv=zeros(kvd))
-    if not cfg.tie_embeddings:
-        params["lm_head"] = norm_init((h, cfg.vocab_size), h)
-    return params
+
+def init_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """The tree ``init_params`` returns, as ``device="meta"`` tensors:
+    the shapes and dtypes with no storage and no draws (the reference's
+    ``jax.eval_shape`` of its ``init_params``)."""
+    return _map_layout(
+        _param_layout(cfg),
+        lambda shape, _: torch.empty(shape, dtype=cfg.param_dtype,
+                                     device="meta"))
 
 
 def layer_params(params: Dict[str, Any], l: int) -> Dict[str, Any]:

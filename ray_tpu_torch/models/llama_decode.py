@@ -109,12 +109,17 @@ def _out_proj(cfg: LlamaConfig, p, attn):
     return torch.matmul(attn, _w(p, "wo", cfg.dtype))
 
 
-def _head(cfg: LlamaConfig, params, x):
-    """Final norm + LM head; fp32 logits of the cfg.dtype operands."""
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+def _lm_head(cfg: LlamaConfig, params, x_normed):
+    """fp32 logits of the cfg.dtype operands of the (tied) LM head."""
     head = (params["embed"].to(cfg.dtype).T if cfg.tie_embeddings
             else _w(params, "lm_head", cfg.dtype))
-    return torch.matmul(x.float(), head.float())
+    return torch.matmul(x_normed.float(), head.float())
+
+
+def _head(cfg: LlamaConfig, params, x):
+    """Final norm + LM head."""
+    return _lm_head(cfg, params,
+                    rms_norm(x, params["final_norm"], cfg.rms_norm_eps))
 
 
 def _prefill_attention(cfg: LlamaConfig, q, k, v):
@@ -129,13 +134,10 @@ def _prefill_attention(cfg: LlamaConfig, q, k, v):
     return attention_reference(q, k, v, causal=True)
 
 
-@torch.no_grad()
-def prefill_batch(cfg: LlamaConfig, params, tokens: torch.Tensor,
-                  last_idx: torch.Tensor
-                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """B prompts in one pass. tokens [B, P] (rows padded to the bucket),
-    last_idx [B] (each row's last true prompt index). Returns
-    (logits_last [B, vocab] f32, kv {"k","v": [L, B, P, KVH, hd]})."""
+def _prefill_stack(cfg: LlamaConfig, params, tokens: torch.Tensor):
+    """The layer stack over padded prompts tokens [B, P]: returns the
+    last layer's output [B, P, h] (before the final norm) and the
+    per-layer K/V, each [L, B, P, KVH, hd]."""
     x = embed(cfg, params, tokens)
     B, P = tokens.shape
     cos, sin = rope_frequencies(cfg.head_dim_, P, cfg.rope_theta,
@@ -153,10 +155,35 @@ def prefill_batch(cfg: LlamaConfig, params, tokens: torch.Tensor,
         x = x + _mlp(cfg, p, x)
         ks.append(k)
         vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def prefill(cfg: LlamaConfig, params, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
+    """One prompt, tokens [1, P] (P the padded bucket length). Returns
+    (logits [P, vocab] f32 at every position, kv {"k","v": [L, P, KVH,
+    hd]}, the final-normed hidden states [1, P, h]), as the reference's
+    ``prefill``: the caller inserts kv into a slot (``insert_sequence``)
+    and samples from the logits row of the true last prompt token."""
+    tokens = to_device(tokens, params["embed"].device)
+    x, k, v = _prefill_stack(cfg, params, tokens)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _lm_head(cfg, params, x[0]), {"k": k[:, 0], "v": v[:, 0]}, x
+
+
+@torch.no_grad()
+def prefill_batch(cfg: LlamaConfig, params, tokens: torch.Tensor,
+                  last_idx: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """B prompts in one pass. tokens [B, P] (rows padded to the bucket),
+    last_idx [B] (each row's last true prompt index). Returns
+    (logits_last [B, vocab] f32, kv {"k","v": [L, B, P, KVH, hd]})."""
+    x, k, v = _prefill_stack(cfg, params, tokens)
+    B, P = tokens.shape
     idx = to_device(last_idx, x.device, torch.long).clamp(0, P - 1)
     x_last = x[torch.arange(B, device=x.device), idx]
-    return _head(cfg, params, x_last), {"k": torch.stack(ks),
-                                        "v": torch.stack(vs)}
+    return _head(cfg, params, x_last), {"k": k, "v": v}
 
 
 @torch.no_grad()
@@ -174,6 +201,20 @@ def insert_many(cache: Dict[str, torch.Tensor], kv: Dict[str, torch.Tensor],
         P = kv["k"].shape[2]
         cache["k"][:, dst, :P] = kv["k"][:, rows]
         cache["v"][:, dst, :P] = kv["v"][:, rows]
+    return cache
+
+
+@torch.no_grad()
+def insert_sequence(cache: Dict[str, torch.Tensor],
+                    kv: Dict[str, torch.Tensor], slot: int
+                    ) -> Dict[str, torch.Tensor]:
+    """Write one prefilled sequence's K/V [L, P, KVH, hd] into cache
+    slot ``slot`` (positions 0..P-1), in place; cache [L, S, T, KVH,
+    hd] with P <= T."""
+    slot = int(slot)
+    P = kv["k"].shape[1]
+    cache["k"][:, slot, :P] = kv["k"]
+    cache["v"][:, slot, :P] = kv["v"]
     return cache
 
 

@@ -1,4 +1,5 @@
 """Serving replica bodies: the continuous-batching dense engine
-(``llm_engine.LLMEngine``) and the paged-KV engine with prefix cache
-(``paged_engine.PagedLLMEngine``), both behind the submit / collect /
-peek / cancel / stats / shutdown mailbox."""
+(``llm_engine.LLMEngine``), the paged-KV engine with prefix cache
+(``paged_engine.PagedLLMEngine``) and the paged engine with
+disaggregated prefill workers (``disagg.DisaggPagedEngine``), all behind
+the submit / collect / peek / cancel / stats / shutdown mailbox."""

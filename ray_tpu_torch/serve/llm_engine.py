@@ -206,10 +206,16 @@ class LLMEngine:
             if req_id in self._seen_ids:
                 return
             self._seen_ids[req_id] = now
-        self._in.put((req_id, list(prompt_tokens),
-                      max_new_tokens or self._max_new, now,
-                      float(temperature),
-                      frozenset(int(t) for t in (stop_ids or ()))))
+        self._enqueue((req_id, list(prompt_tokens),
+                       max_new_tokens or self._max_new, now,
+                       float(temperature),
+                       frozenset(int(t) for t in (stop_ids or ()))))
+
+    def _enqueue(self, item: tuple) -> None:
+        """Hook: hand an accepted request to admission (the
+        disaggregated engine diverts long prompts to its prefill
+        workers here)."""
+        self._in.put(item)
 
     def collect(self, req_ids: Optional[List[str]] = None) -> Dict[str, Any]:
         """Drain finished requests (only ``req_ids`` if given)."""
