@@ -104,12 +104,28 @@ Phases, each printing what it finds; any failure exits non-zero:
    update at rtol 1e-4 against a CPU learner that starts that update
    from the card learner's state (``rl_phase`` says why); ms per
    update on the card (median of 10).
+11. the parallel layer (``ray_tpu_torch.parallel``, the models' mesh
+   surface) at world size 1 over NCCL: one card cannot hold two ranks of
+   one communicator, so multi-rank numerics are held on the CPU by the
+   gloo tests. Phase 5's Llama-3-8B width, 8 layers, 4 x 2048 (fp32
+   params, bf16 compute, full remat): ``loss_fn(mesh={fsdp 1, sp 1, tp
+   1})`` with Ulysses (the wgmma flash forward, dQ and dK/dV on the local
+   heads, launches counted) and with ring attention (plain ops, no
+   launch), ``loss_fn_pp`` at pp 1 with 4 microbatches; Mixtral-8x7B
+   width, 2 layers, under {dp 1, ep 1}. Each loss and every gathered
+   gradient leaf are held to the mesh-free run on the same weights and
+   attention math (the flash kernels; ring's fp32 math to the reference
+   attention) at bf16 atol/rtol 2e-2 (atol scaled by the leaf's largest
+   value); ms a
+   step (loss and backward) of each beside the mesh-free step. The phase
+   destroys its process group.
 
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
 3 and 6, of the backward kernels from phases 5 and 7's Gemma run, of
 the fp32 scalar kernels from phase 2's Llama dense engine and phase 4's
-Llama and Gemma runs);
+Llama and Gemma runs; the d-128 wgmma rows add phase 11's sharded
+runs);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -2111,6 +2127,242 @@ def rl_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 11
+
+MESH_STEPS = 3   # loss + backward steps of each phase-11 run
+# ring at bf16 compute against its mesh-free math: at this shape the bf16
+# gradients of two correct attention implementations differ by about 2e-2
+# of a leaf's largest value (phase 11 prints the flash kernels' spread
+# against ring's math: 2.348e-02 on an H100 80GB HBM3 at 700 W, where ring
+# reads 1.818e-02), so the limit sits above that spread
+RING_BF16_TOL = 3e-2
+
+
+def _grad_tree(params) -> dict:
+    """Each param leaf's gradient, whole (a DTensor's ``full_tensor()``)."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models.llama import param_leaves
+
+    return {n: (p.grad.full_tensor() if isinstance(p.grad, DTensor)
+                else p.grad).detach() for n, p in param_leaves(params)}
+
+
+def _spread(grads: dict, ref_grads: dict) -> float:
+    """The worst leaf's max|dg| / max|g| of two gradient trees."""
+    worst = 0.0
+    for name, want in ref_grads.items():
+        got = grads[name].to(want.device).float()
+        scale = float(want.float().abs().max()) or 1.0
+        worst = max(worst, float((got - want.float()).abs().max()) / scale)
+    return worst
+
+
+def _mesh_run(what, loss_fn, params, ref=None, tol=2e-2,
+              keep=False) -> tuple:
+    """``MESH_STEPS`` steps of ``loss_fn().backward()`` on ``params``:
+    (last loss, ms a step (median of steps 2 on), the launch counters of
+    all steps, and with ``keep`` the last step's gradients on the host).
+    With ``ref`` (loss, host gradients of a mesh-free run), the loss and
+    every gradient leaf are held to it at atol/rtol ``tol`` (atol scaled
+    by the leaf's largest value)."""
+    from ray_tpu_torch.models.llama import param_leaves
+
+    leaves = [p for _, p in param_leaves(params)]
+    walls = []
+    counters_reset()
+    for _ in range(MESH_STEPS):
+        for p in leaves:
+            p.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(params)
+        loss.backward()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    runs = counters()
+    loss = loss.item()
+    ms = statistics.median(walls[1:]) * 1e3
+    grads = _grad_tree(params)
+    line = f"  {what}: loss {loss:.6f}, {ms:.1f} ms a step"
+    if ref is not None:
+        ref_loss, ref_grads = ref
+        ok, _ = close(torch.tensor(loss), torch.tensor(ref_loss), tol, tol)
+        check(ok and np.isfinite(loss),
+              f"{what}: loss {loss} against the mesh-free {ref_loss}")
+        worst = 0.0
+        for name, want in ref_grads.items():
+            want = want.to(grads[name].device)
+            scale = float(want.float().abs().max()) or 1.0
+            ok, err = close(grads[name], want, tol * scale, tol)
+            check(ok, f"{what}: gradient {name} off by {err} (max "
+                      f"{scale})")
+            worst = max(worst, err / scale)
+        line += (f"; loss - mesh-free {loss - ref_loss:+.3e}, worst gradient "
+                 f"leaf max|dg|/max|g| {worst:.3e}")
+    grads = {k: v.cpu() for k, v in grads.items()} if keep else None
+    for p in leaves:
+        p.grad = None
+    print(line + f"; launches {runs}", flush=True)
+    return loss, ms, runs, grads
+
+
+def mesh_phase(dev) -> dict:
+    """11: the parallel layer at world size 1 over NCCL (one card cannot
+    hold two ranks of one communicator), full width: phase 5's Llama-3-8B
+    width, 8 layers, 4 x 2048 (fp32 params, bf16 compute, full remat),
+    ``loss_fn(mesh={fsdp 1, sp 1, tp 1})`` with Ulysses (the wgmma flash
+    kernels on the local heads) and with ring attention, ``loss_fn_pp``
+    at pp 1 with 4 microbatches, then Mixtral-8x7B width with 2 layers
+    under {dp 1, ep 1}. Each run's loss and gathered gradients are held
+    to the mesh-free run on the same weights with the same attention
+    math (the flash kernels; for ring, attention in fp32 at fp32 and at
+    bf16 compute); ms a step (loss and backward) beside the mesh-free
+    step. Returns the sharded runs' flash launches (the Ulysses,
+    pipeline and Mixtral runs)."""
+    import tempfile
+    from dataclasses import replace
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama, mixtral
+    from ray_tpu_torch.ops.attention import attention_reference
+    from ray_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                        device_put_sharded,
+                                        init_process_group)
+    from ray_tpu_torch.tools import profile_train as run
+
+    def place(mod, cfg, params, axes):
+        mesh = build_mesh(MeshSpec(axes))
+        placed = device_put_sharded(_detached(params),
+                                    mod.param_shardings(cfg, mesh))
+        for _, p in llama.param_leaves(placed):
+            p.requires_grad_()
+        return mesh, placed
+
+    total = {"fwd_sm90": 0, "dq_sm90": 0, "dkv_sm90": 0}
+
+    def count(runs, want_fwd, want_bwd, what):
+        check(runs["fwd"] == runs["fwd_sm90"] == want_fwd and
+              runs["dq"] == runs["dq_sm90"] == want_bwd and
+              runs["dkv"] == runs["dkv_sm90"] == want_bwd,
+              f"{what}: flash launches {runs}, want {want_fwd} forward and "
+              f"{want_bwd} dQ and dK/dV, all on the wgmma route")
+        for k in total:
+            total[k] += runs[k]
+
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(0, 1, dev, store_path=os.path.join(store, "pg"))
+        try:
+            cfg, params, opt, toks = run.build_train_run(dev)
+            del opt
+            L, steps = cfg.num_layers, MESH_STEPS
+            batch = {"tokens": toks}
+            print(f"  world size {dist.get_world_size()} over "
+                  f"{dist.get_backend()}; Llama-3-8B width, {L} layers, "
+                  f"batch {toks.shape[0]} x {toks.shape[1] - 1}", flush=True)
+            ref_loss, ref_ms, _, grads = _mesh_run(
+                "mesh-free", lambda p: llama.loss_fn(cfg, p, batch), params,
+                keep=True)
+            ref = (ref_loss, grads)
+            mesh, placed = place(llama, cfg, params,
+                                 {"fsdp": 1, "sp": 1, "tp": 1})
+            ucfg = replace(cfg, attn_impl="ulysses")
+            _, ms, runs, _ = _mesh_run(
+                "ulysses on {fsdp 1, sp 1, tp 1}",
+                lambda p: llama.loss_fn(ucfg, p, batch, mesh=mesh), placed,
+                ref)
+            count(runs, 2 * L * steps, L * steps, "ulysses")
+            print(f"  ulysses: {ms:.1f} ms a step against the mesh-free "
+                  f"{ref_ms:.1f}", flush=True)
+            M = 4
+            pmesh, pplaced = place(llama, cfg, params, {"pp": 1})
+            _, ms, runs, _ = _mesh_run(
+                f"loss_fn_pp at pp 1, {M} microbatches",
+                lambda p: llama.loss_fn_pp(cfg, p, batch, pmesh, M), pplaced,
+                ref)
+            count(runs, 2 * L * M * steps, L * M * steps, "pipeline")
+            print(f"  pipeline: {ms:.1f} ms a step against the mesh-free "
+                  f"{ref_ms:.1f}", flush=True)
+            del pplaced
+            # ring keeps its probabilities in fp32, as the reference's ring
+            # does (tests/test_torch_seqpar.py holds the two together in
+            # bf16), where the flash kernels and attention_reference round
+            # them to bf16 for the value product. So ring is held to
+            # mesh-free runs of its own math: attention_reference on q/k/v
+            # upcast to fp32, its output rounded to the compute dtype; at
+            # fp32 compute to 1e-4 of each leaf's largest value (phase 4's
+            # limit), at bf16 compute to RING_BF16_TOL, beside the spread
+            # between the flash run and that math.
+            def fp32_attention(q, k, v, causal=True):
+                return attention_reference(q.float(), k.float(), v.float(),
+                                           causal).to(q.dtype)
+
+            cfg32 = replace(cfg, dtype=torch.float32)
+            for what, rcfg, tol in (("fp32 compute", cfg32, 1e-4),
+                                    ("bf16 compute", cfg, RING_BF16_TOL)):
+                fcfg = replace(rcfg, attn_impl="reference")
+                with mock.patch.object(llama, "attention_reference",
+                                       fp32_attention):
+                    ref_loss, fref_ms, _, grads = _mesh_run(
+                        f"mesh-free, {what}, attention in fp32",
+                        lambda p: llama.loss_fn(fcfg, p, batch), params,
+                        keep=True)
+                if rcfg.dtype == torch.bfloat16:
+                    print(f"  flash against attention in fp32, bf16 compute: "
+                          f"loss {ref[0] - ref_loss:+.3e}, worst gradient "
+                          f"leaf max|dg|/max|g| "
+                          f"{_spread(ref[1], grads):.3e}", flush=True)
+                rcfg = replace(rcfg, attn_impl="ring")
+                _, ms, runs, _ = _mesh_run(
+                    f"ring on {{fsdp 1, sp 1, tp 1}}, {what}",
+                    lambda p: llama.loss_fn(rcfg, p, batch, mesh=mesh),
+                    placed, (ref_loss, grads), tol=tol)
+                check(runs["fwd"] == runs["dq"] == 0,
+                      f"ring launched flash kernels: {runs}")
+                print(f"  ring, {what}: {ms:.1f} ms a step against the "
+                      f"mesh-free {fref_ms:.1f} (attention in fp32) and "
+                      f"{ref_ms:.1f} (flash)", flush=True)
+                del grads
+            del placed, params, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            mcfg = mixtral.MixtralConfig.mixtral_8x7b(num_layers=2)
+            mparams = mixtral.init_params(mcfg, seed=0, device=dev)
+            for _, p in llama.param_leaves(mparams):
+                p.requires_grad_()
+            mtoks = torch.from_numpy(np.random.default_rng(0).integers(
+                0, mcfg.vocab_size, (4, 2049))).to(dev)
+            mbatch = {"tokens": mtoks}
+            ref_loss, ref_ms, _, grads = _mesh_run(
+                "Mixtral-8x7B width, 2 layers, mesh-free",
+                lambda p: mixtral.loss_fn(mcfg, p, mbatch), mparams,
+                keep=True)
+            ref = (ref_loss, grads)
+            mesh, placed = place(mixtral, mcfg, mparams, {"dp": 1, "ep": 1})
+            _, ms, runs, _ = _mesh_run(
+                "Mixtral on {dp 1, ep 1}",
+                lambda p: mixtral.loss_fn(mcfg, p, mbatch, mesh=mesh),
+                placed, ref)
+            count(runs, 2 * mcfg.num_layers * steps,
+                  mcfg.num_layers * steps, "Mixtral")
+            print(f"  Mixtral: {ms:.1f} ms a step against the mesh-free "
+                  f"{ref_ms:.1f}", flush=True)
+            del placed, mparams, ref
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _detached(params) -> dict:
+    return {k: _detached(v) if isinstance(v, dict) else v.detach()
+            for k, v in params.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2183,6 +2435,10 @@ def main() -> None:
     decode_api_phase(dev)
     print("phase 10: the RL learners, card against CPU", flush=True)
     rl_phase(dev)
+    print("phase 11: the parallel layer at world size 1 over NCCL: "
+          "Llama-3-8B width (Ulysses, ring, pp 1), Mixtral-8x7B width "
+          "{dp 1, ep 1}", flush=True)
+    sharded = mesh_phase(dev)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 scalar rows' from phase 2's
@@ -2204,6 +2460,11 @@ def main() -> None:
                     flash_attention_bwd_dkv_scalar=gemma_fp32["dkv"],
                     flash_attention_bwd_dkv_sm90_d256=gemma_train[
                         "dkv_sm90"])
+    # phase 11's sharded runs launch the d-128 wgmma flash kernels too
+    for name, key in (("flash_attention_fwd", "fwd_sm90"),
+                      ("flash_attention_bwd_dq", "dq_sm90"),
+                      ("flash_attention_bwd_dkv", "dkv_sm90")):
+        launches[name] += sharded[key]
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     order = ("name", "route", "source", "replaces", "launches",

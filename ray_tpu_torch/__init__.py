@@ -10,6 +10,10 @@ has an obvious counterpart:
     ops/layers.py           <-> ray_tpu/ops/layers.py
     ops/attention.py        <-> ray_tpu/ops/attention.py      (kernel)
     ops/paged_attention.py  <-> ray_tpu/ops/paged_attention.py (kernel)
+    ops/ring_attention.py, ops/ulysses.py (sequence parallel)
+    parallel/mesh.py, sharding.py, device_collectives.py, pipeline.py
+    (over torch.distributed; models/sharded.py runs the models' mesh
+    paths on them)
     models/llama.py, llama_decode.py, llama_paged.py, gpt2.py,
     mixtral.py, hf_weights.py
     serve/llm_engine.py, serve/paged_engine.py, serve/disagg.py

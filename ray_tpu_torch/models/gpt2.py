@@ -6,9 +6,9 @@ LM head tied to ``wte``), the same fp32 norms and bias adds around
 products in ``cfg.dtype``, and remat as ``torch.utils.checkpoint``
 around each layer. Attention is ``llama._attend``: ``flash_attention``
 on CUDA tensors (the ``wgmma`` kernels at head dim 64 in bf16) and the
-reference on the CPU.
-``logical_axes`` and ``param_shardings`` wait for the port of
-``parallel/``.
+reference on the CPU. ``logical_axes`` and ``param_shardings`` give the
+placements of the reference's rule table; like the reference, GPT-2 has
+no mesh forward.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.models.llama import (_attend, as_dtype,
                                         cross_entropy_loss, layer_params,
-                                        resolve_device)
+                                        resolve_device, without_layer)
 
 
 @dataclass(frozen=True)
@@ -61,6 +61,33 @@ class GPT2Config:
         return replace(
             cls(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
                 max_seq_len=128, dtype=torch.float32, remat=False), **kw)
+
+
+def logical_axes(cfg: GPT2Config) -> Dict[str, Any]:
+    L = ("layer",)
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "layers": {
+            "ln1_g": L + ("embed",), "ln1_b": L + ("embed",),
+            "w_qkv": L + ("embed", "qkv"), "b_qkv": L + ("qkv",),
+            "w_proj": L + ("qkv", "embed"), "b_proj": L + ("embed",),
+            "ln2_g": L + ("embed",), "ln2_b": L + ("embed",),
+            "w_fc": L + ("embed", "mlp"), "b_fc": L + ("mlp",),
+            "w_out": L + ("mlp", "embed"), "b_out": L + ("embed",),
+        },
+        "lnf_g": ("embed",), "lnf_b": ("embed",),
+    }
+
+
+def logical_axes_without_layer(cfg: GPT2Config):
+    return without_layer(logical_axes(cfg))
+
+
+def param_shardings(cfg: GPT2Config, mesh):
+    from ray_tpu_torch.parallel.sharding import shard_pytree_like
+
+    return shard_pytree_like(logical_axes_without_layer(cfg), mesh)
 
 
 def init_params(cfg: GPT2Config, seed: int = 0,

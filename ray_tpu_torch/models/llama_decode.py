@@ -45,6 +45,30 @@ def init_cache(cfg: LlamaConfig, num_slots: int, max_len: int,
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
 
+def _kv_head_sharding(cfg: LlamaConfig, mesh, kv_dim: int):
+    """A cache's placements under tensor parallelism: its KV-head dim
+    (``kv_dim``) split over ``tp`` when tp divides KVH, replicated
+    otherwise (GQA with few KV heads; Q heads still split)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ray_tpu_torch.parallel.sharding import Sharding
+
+    names = tuple(mesh.mesh_dim_names)
+    tp = mesh.size(names.index("tp")) if "tp" in names else 1
+    split = tp > 1 and cfg.num_kv_heads % tp == 0
+    sh = Sharding(mesh, tuple(Shard(kv_dim) if split and a == "tp"
+                              else Replicate() for a in names))
+    return {"k": sh, "v": sh}
+
+
+def cache_shardings(cfg: LlamaConfig, mesh):
+    """Slot-cache placements for tensor-parallel decode: the KV-head dim
+    of [L, S, T, KVH, hd] over ``tp`` (each card holds its heads' cache),
+    or replicated when tp does not divide KVH. The placements only: the
+    engines serve on one card."""
+    return _kv_head_sharding(cfg, mesh, 3)
+
+
 def _w(p, name: str, dtype):
     """Weight leaf in ``dtype``: a plain tensor, or an int8 weight-only
     leaf ``{"q": int8 [..., in, out], "s": f32 [..., 1, out]}``

@@ -30,7 +30,8 @@ import torch
 from ray_tpu_torch.models.llama import (LlamaConfig, embed, host_array,
                                         layer_params, resolve_device,
                                         to_device)
-from ray_tpu_torch.models.llama_decode import (_head, _kept_rows, _mlp,
+from ray_tpu_torch.models.llama_decode import (_head, _kept_rows,
+                                               _kv_head_sharding, _mlp,
                                                _out_proj, _project_qkv,
                                                sample_tokens)
 from ray_tpu_torch.ops.layers import apply_rope, rope_frequencies
@@ -50,6 +51,13 @@ def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
              cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def paged_cache_shardings(cfg: LlamaConfig, mesh):
+    """Page-pool placements under tensor parallelism: the KV-head dim of
+    [L, P, KVH, page, hd] over ``tp`` (the dense cache's rule), or
+    replicated when tp does not divide KVH. The placements only."""
+    return _kv_head_sharding(cfg, mesh, 2)
 
 
 @torch.no_grad()

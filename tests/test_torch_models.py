@@ -104,8 +104,12 @@ def test_config_maps_dtype_names_and_rejects_unported_attention():
     assert (cfg.hidden_size, cfg.num_layers, cfg.num_heads,
             cfg.num_kv_heads, cfg.head_dim_, cfg.intermediate_size,
             cfg.vocab_size) == (4096, 32, 32, 8, 128, 14336, 128256)
-    with pytest.raises(ValueError, match="ring"):
-        tl.LlamaConfig.tiny(attn_impl="ring")
+    # ring and ulysses are ported (they need a mesh); an unknown
+    # attention still raises
+    for impl in ("ring", "ulysses"):
+        assert tl.LlamaConfig.tiny(attn_impl=impl).attn_impl == impl
+    with pytest.raises(ValueError, match="attn_impl"):
+        tl.LlamaConfig.tiny(attn_impl="bogus")
 
 
 def test_params_numpy_roundtrip():
