@@ -96,9 +96,10 @@ Phases, each printing what it finds; any failure exits non-zero:
    shapes and dtypes.
 10. the RL learners (PPO, IMPALA, APPO on the conv module at Catch's 10
    x 10 x 1; DQN, CQL on the Q MLP and BC, MARWIL on the MLP at
-   CartPole's 4 / 2; SAC at Pendulum's 3 / 1), each built on the card
+   CartPole's 4 / 2; SAC at Pendulum's 3 / 1; DreamerV3 at CartPole's 4 /
+   2 with the reference's defaults, batch 8 x 16), each built on the card
    and on the CPU from the same parameters and given the same 3 batches
-   (PPO the same permutations, SAC the same noise): the first
+   (PPO the same permutations, SAC and DreamerV3 the same noise): the first
    gradients agree at atol 1e-5 / rtol 1e-4 and the parameters after
    the 3 updates within 0.2 lr an optimizer step; the losses of each
    update at rtol 1e-4 against a CPU learner that starts that update
@@ -119,13 +120,21 @@ Phases, each printing what it finds; any failure exits non-zero:
    value); ms a
    step (loss and backward) of each beside the mesh-free step. The phase
    destroys its process group.
+12. tensor-parallel serving at world size 1 over NCCL (multi-rank serving
+   is held on the CPU by ``tests/test_torch_tp_serve.py``): phase 3's
+   Llama-3-8B bf16 weights and requests through both engines with
+   ``mesh={tp 1}`` give phase 3's greedy tokens request by request with
+   the same flash (wgmma) and paged launches; TTFT and ITL p50/p99 beside
+   phase 3's; the engine's peak memory on top of the weights stays below
+   a second copy of them; ``LLMEngine(tp=2)`` on one card raises the
+   reference's ValueError.
 
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
 3 and 6, of the backward kernels from phases 5 and 7's Gemma run, of
 the fp32 scalar kernels from phase 2's Llama dense engine and phase 4's
 Llama and Gemma runs; the d-128 wgmma rows add phase 11's sharded
-runs);
+runs, the d-128 forward and G-4 paged rows phase 12's engines);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -1330,7 +1339,7 @@ def serve_8b_requests(vocab_size: int) -> tuple:
             [("q7", prompts[7])])
 
 
-def serve_8b_phase(dev) -> dict:
+def serve_8b_phase(dev) -> tuple:
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.llm_engine import LLMEngine
     from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
@@ -1384,7 +1393,7 @@ def serve_8b_phase(dev) -> dict:
             check(st["prefix_hit_tokens"] >= 128,
                   "the shared 128-token prefix did not hit the cache")
         result[name] = {"tokens": {r: v["tokens"] for r, v in out.items()},
-                        "launches": launches}
+                        "launches": launches, "lat": _latency_ms(out)}
     check(result["dense"]["launches"][0] > 0,
           "dense engine never launched the flash kernel")
     check(result["paged"]["launches"][1] > 0,
@@ -1393,8 +1402,8 @@ def serve_8b_phase(dev) -> dict:
                for r in result["dense"]["tokens"])
     print(f"  8B bf16: dense and paged transcripts identical for {same}/8 "
           f"requests (not required in bf16)", flush=True)
-    return {"flash_attention_fwd": result["dense"]["launches"][0],
-            "paged_attention": result["paged"]["launches"][1]}
+    return ({"flash_attention_fwd": result["dense"]["launches"][0],
+             "paged_attention": result["paged"]["launches"][1]}, result)
 
 
 # ------------------------------------------------------------ phases 6, 7
@@ -1909,8 +1918,8 @@ def decode_api_phase(dev) -> None:
 # the RL learners of phase 10: name -> (learner factory, batch maker,
 # update call, optimizer steps per update, learning rate)
 def _rl_cases():
-    from ray_tpu_torch.rllib import (appo, dqn, impala, learner, offline,
-                                     rl_module, sac)
+    from ray_tpu_torch.rllib import (appo, dqn, dreamer, impala, learner,
+                                     offline, rl_module, sac)
 
     catch = (10, 10, 1)
     rng = np.random.default_rng(16)
@@ -1953,6 +1962,23 @@ def _rl_cases():
                                   for _ in range(10)]).reshape(10, 8, 512)
     noise = lambda: rng.normal(size=(4, 2, 4096, 1)).astype(  # noqa: E731
         np.float32)
+
+    def seq_batch(B=8, L=16, d=4, a=2):
+        first = (rng.random((B, L)) < 0.05).astype(np.float32)
+        first[:, 0] = 1.0
+        return {"obs": f32(B, L, d), "actions": rng.integers(0, a, (B, L)),
+                "rewards": f32(B, L),
+                "dones": (rng.random((B, L)) < 0.05).astype(np.float32),
+                "is_first": first}
+
+    def gumbel(*s):
+        u = rng.uniform(np.finfo(np.float32).tiny, 1.0, s)
+        return (-np.log(-np.log(u))).astype(np.float32)
+
+    # the reference's defaults: 8 x 8 latents, horizon 10, 64 starts
+    dreamer_noise = lambda: {  # noqa: E731
+        "post": gumbel(16, 8, 8, 8), "act": gumbel(10, 64, 2),
+        "prior": gumbel(10, 64, 8, 8), "pick": rng.permutation(128)[:64]}
     return {
         "PPO (CNN, Catch)": (
             lambda d, p: learner.PPOLearner(cnn(), minibatch_size=512,
@@ -1989,6 +2015,13 @@ def _rl_cases():
                 rl_module.TwinQModule(3, 1), device=d, params=p),
             sac_batch, lambda lrn, b, x: lrn.update_many(b, noise=x), noise,
             4, 3e-4),
+        "DreamerV3 (CartPole)": (
+            lambda d, p: dreamer.DreamerV3Learner(4, 2, device=d, params=p),
+            # imag_return is held out: near 0 it is a cancellation of
+            # +-15 bins, whose last bits a relative limit cannot hold
+            seq_batch, lambda lrn, b, x: {
+                k: v for k, v in lrn.update(b, noise=x).items()
+                if k != "imag_return"}, dreamer_noise, 1, 4e-4),
     }
 
 
@@ -1998,6 +2031,8 @@ def _rl_params(lrn):
 
     if hasattr(lrn, "critic"):
         return {"pi": to_numpy(lrn.actor), "q": to_numpy(lrn.critic)}
+    if hasattr(lrn, "wm"):
+        return {"wm": to_numpy(lrn.wm), "ac": to_numpy(lrn.ac)}
     return to_numpy(lrn.module)
 
 
@@ -2006,8 +2041,9 @@ def _rl_state(lrn) -> dict:
     from ray_tpu_torch.rllib.rl_module import tree_leaves
 
     state = tree_leaves(_rl_params(lrn))
-    if hasattr(lrn, "log_alpha"):
-        state["log_alpha"] = lrn.log_alpha.detach().cpu().numpy()
+    for name in ("log_alpha", "ret_lo", "ret_hi"):
+        if hasattr(lrn, name):
+            state[name] = getattr(lrn, name).detach().cpu().numpy()
     return state
 
 
@@ -2358,6 +2394,105 @@ def mesh_phase(dev) -> dict:
     return total
 
 
+# ------------------------------------------------------------- phase 12
+
+
+def tp_serve_phase(dev, phase3: dict) -> dict:
+    """12: tensor-parallel serving at world size 1 over NCCL (one card
+    cannot hold two ranks of one communicator: multi-rank serving is held
+    on the CPU by tests/test_torch_tp_serve.py). Phase 3's Llama-3-8B bf16
+    weights (seed 0) and requests through both engines with
+    ``mesh={tp 1}``: the same greedy tokens as phase 3's mesh-free
+    engines request by request, the same kernel launches on the same
+    routes, TTFT and ITL beside phase 3's, and the engine's memory on top
+    of the weights below a second copy of them. ``LLMEngine(tp=2)`` on
+    one card raises the reference's ValueError. Returns the launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel import init_process_group
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    n = torch.cuda.device_count()
+    try:
+        LLMEngine(tp=n + 1, device=dev)
+        check(False, f"LLMEngine(tp={n + 1}) on {n} card(s) did not raise")
+    except ValueError as e:
+        want = f"tp={n + 1} needs {n + 1} devices, found {n}"
+        check(str(e) == want, f"LLMEngine(tp={n + 1}): {e!r}, want {want!r}")
+        print(f"  LLMEngine(tp={n + 1}) on {n} card(s): ValueError({e})",
+              flush=True)
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16)
+    params = llama.init_params(cfg, seed=0, device=dev)
+    weights = sum(p.numel() * p.element_size()
+                  for _, p in llama.param_leaves(params))
+    first, last = serve_8b_requests(cfg.vocab_size)
+    out_launches = {}
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(0, 1, dev, store_path=os.path.join(store, "pg"))
+        try:
+            mesh = build_mesh(MeshSpec({"tp": 1}))
+            kw = dict(SERVE_8B, params=params, device=dev, mesh=mesh)
+            for name, make in (("dense", lambda: LLMEngine(**kw)),
+                               ("paged", lambda: PagedLLMEngine(
+                                   page_size=64, **kw))):
+                torch.cuda.synchronize()
+                gc.collect()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                counters_reset()
+                eng = make()
+                check(hasattr(eng._params["embed"], "placements"),
+                      f"{name}: the engine's weights are not DTensors")
+                out = drain(eng, first, 300)
+                out.update(drain(eng, last, 120))
+                stop(eng)
+                c = counters()
+                peak = torch.cuda.max_memory_allocated() - base
+                del eng
+                want = phase3[name]
+                for rid, res in out.items():
+                    check(res["tokens"] == want["tokens"][rid],
+                          f"{name} mesh={{tp 1}} {rid}: tokens differ from "
+                          f"phase 3's")
+                check(c["paged_merge"] == c["paged"]
+                      and c["fwd_sm90"] == c["fwd"],
+                      f"{name} mesh={{tp 1}}: launches {c}")
+                got = (c["fwd"], c["paged"])
+                check(got == want["launches"],
+                      f"{name} mesh={{tp 1}}: flash and paged launches "
+                      f"{got}, phase 3 {want['launches']}")
+                check(peak < weights,
+                      f"{name} mesh={{tp 1}}: {peak / 2**30:.2f} GiB on top "
+                      f"of the weights, a second copy is "
+                      f"{weights / 2**30:.2f}")
+                lat, ref = _latency_ms(out), want["lat"]
+                print(f"  8B {name} mesh={{tp 1}}: tokens equal phase 3's for "
+                      f"8/8 requests; flash launches {got[0]} (wgmma "
+                      f"{c['fwd_sm90']}), paged launches {got[1]}; TTFT "
+                      f"p50/p99 {lat['ttft_p50']:.2f}/{lat['ttft_p99']:.2f} "
+                      f"ms (phase 3 {ref['ttft_p50']:.2f}/"
+                      f"{ref['ttft_p99']:.2f}), ITL p50/p99 "
+                      f"{lat['itl_p50']:.3f}/{lat['itl_p99']:.3f} ms (phase 3 "
+                      f"{ref['itl_p50']:.3f}/{ref['itl_p99']:.3f}); peak "
+                      f"{peak / 2**30:.2f} GiB on top of the "
+                      f"{weights / 2**30:.2f} GiB of weights", flush=True)
+                out_launches[name] = got
+        finally:
+            dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": out_launches["dense"][0],
+            "paged_attention": out_launches["paged"][1]}
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -2404,7 +2539,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     print("phase 3: Llama-3-8B bf16, 32 layers, dense then paged",
           flush=True)
-    launches = serve_8b_phase(dev)
+    launches, phase3 = serve_8b_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     print("phase 4: fp32 full width, 2 layers, gradients through the "
@@ -2439,6 +2574,9 @@ def main() -> None:
           "Llama-3-8B width (Ulysses, ring, pp 1), Mixtral-8x7B width "
           "{dp 1, ep 1}", flush=True)
     sharded = mesh_phase(dev)
+    print("phase 12: tensor-parallel serving at world size 1 over NCCL: "
+          "Llama-3-8B bf16, both engines with mesh={tp 1}", flush=True)
+    tp_serve = tp_serve_phase(dev, phase3)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 scalar rows' from phase 2's
@@ -2465,6 +2603,9 @@ def main() -> None:
                       ("flash_attention_bwd_dq", "dq_sm90"),
                       ("flash_attention_bwd_dkv", "dkv_sm90")):
         launches[name] += sharded[key]
+    # and phase 12's engines the serving kernels
+    for name, n in tp_serve.items():
+        launches[name] += n
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     order = ("name", "route", "source", "replaces", "launches",

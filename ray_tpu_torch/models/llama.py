@@ -296,9 +296,19 @@ def _tp_sum(spmd, x):
     return x if spmd is None else spmd.tp_sum(x)
 
 
-def _qkv(cfg: LlamaConfig, h1, p, cos, sin):
+def heads_gathered(cfg: LlamaConfig, spmd) -> bool:
+    """Whether tp splits the heads unevenly (it does not divide the KV
+    heads): each rank then gathers the whole q/k/v projections from its
+    column shards, attends every head and keeps its block of the
+    output, as GSPMD computes the reference's placements."""
+    return spmd is not None and not spmd.heads_local(cfg.num_heads,
+                                                     cfg.num_kv_heads)
+
+
+def _qkv(cfg: LlamaConfig, h1, p, cos, sin, spmd=None):
     """Post-rope q, k and the v projection of the normed input ``h1``;
-    the head counts follow the weights (a rank's heads under tp)."""
+    the head counts follow the weights (a rank's heads under tp), or
+    are every head (``heads_gathered``)."""
     b, s, _ = h1.shape
     hd = cfg.head_dim_
     q = torch.matmul(h1, p["wq"].to(cfg.dtype))
@@ -308,6 +318,8 @@ def _qkv(cfg: LlamaConfig, h1, p, cos, sin):
         q = q + p["bq"].to(cfg.dtype)
         k = k + p["bk"].to(cfg.dtype)
         v = v + p["bv"].to(cfg.dtype)
+    if heads_gathered(cfg, spmd):
+        q, k, v = (spmd.tp_gather(t) for t in (q, k, v))
     q = apply_rope(q.reshape(b, s, -1, hd), cos, sin)
     k = apply_rope(k.reshape(b, s, -1, hd), cos, sin)
     return q, k, v.reshape(b, s, -1, hd)
@@ -318,6 +330,8 @@ def _attn_out(cfg: LlamaConfig, x, q, k, v, p, spmd=None):
     tp, wo's rows are this rank's heads and the products are summed)."""
     b, s, _ = x.shape
     attn = _attend(cfg, q, k, v, spmd).reshape(b, s, -1)
+    if heads_gathered(cfg, spmd):
+        attn = spmd.tp_block(attn)
     return x + _tp_sum(spmd, torch.matmul(attn, p["wo"].to(cfg.dtype)))
 
 
@@ -338,14 +352,14 @@ def attention_block(cfg: LlamaConfig, x, p, cos, sin, spmd=None):
     it). Counterpart of the reference's ``attention_block``; ``spmd``
     (``models/sharded.py``) runs it on a rank's shards of a mesh."""
     h1 = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
-    return _attn_out(cfg, x, *_qkv(cfg, h1, p, cos, sin), p, spmd)
+    return _attn_out(cfg, x, *_qkv(cfg, h1, p, cos, sin, spmd), p, spmd)
 
 
 def _layer(cfg: LlamaConfig, x, p, cos, sin, spmd=None):
     if spmd is not None:
         p = spmd.weights(p)
     h1 = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
-    return _attn_mlp(cfg, x, *_qkv(cfg, h1, p, cos, sin), p, spmd)
+    return _attn_mlp(cfg, x, *_qkv(cfg, h1, p, cos, sin, spmd), p, spmd)
 
 
 def _remat_layer(cfg: LlamaConfig, x, p, cos, sin, spmd=None):
@@ -370,7 +384,7 @@ def _remat_layer(cfg: LlamaConfig, x, p, cos, sin, spmd=None):
         p = spmd.weights(p)
     h1 = checkpoint(rms_norm, x, p["attn_norm"], cfg.rms_norm_eps,
                     use_reentrant=False)
-    q, k, v = _qkv(cfg, h1, p, cos, sin)
+    q, k, v = _qkv(cfg, h1, p, cos, sin, spmd)
     return checkpoint(_attn_mlp, cfg, x, q, k, v, p, spmd,
                       use_reentrant=False)
 
@@ -482,8 +496,12 @@ def _spmd(cfg: LlamaConfig, params, mesh, keep=("tp",), pp: bool = False,
     names = mesh.mesh_dim_names
     tp = mesh.size(names.index("tp")) if "tp" in names and "tp" in keep \
         else 1
-    for what, n in (("num_heads", cfg.num_heads),
-                    ("num_kv_heads", cfg.num_kv_heads),
+    # the column widths tp splits (not the head counts: a rank may hold
+    # part of a head, see heads_gathered); the reference's device_put
+    # refuses a dim that does not divide
+    hd = cfg.head_dim_
+    for what, n in (("q projection width", cfg.num_heads * hd),
+                    ("kv projection width", cfg.num_kv_heads * hd),
                     ("intermediate_size", cfg.intermediate_size),
                     ("vocab_size", cfg.vocab_size)):
         if n % tp:

@@ -82,6 +82,23 @@ class Spmd:
         """Sum the partial products of row-split weights over tp."""
         return dc.psum(x, "tp", mesh=self.mesh) if self.tp > 1 else x
 
+    def heads_local(self, num_heads: int, num_kv_heads: int) -> bool:
+        """Whether this rank's column shards of wq/wk/wv are whole heads
+        of whole GQA groups: tp divides the KV heads (and so the Q
+        heads). Otherwise ``tp_gather`` the projections and keep this
+        rank's ``tp_block`` of the attention output."""
+        return self.tp == 1 or (num_heads % self.tp == 0
+                                and num_kv_heads % self.tp == 0)
+
+    def tp_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole last dim from its tp column shards (the gradient
+        reduce-scatters back)."""
+        return dc.all_gather(x, "tp", mesh=self.mesh, gather_axis=-1)
+
+    def tp_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the last dim, as tp splits a column."""
+        return x.chunk(self.tp, -1)[self.index("tp")]
+
     def weights(self, p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One layer's weights for compute, from its local shards."""
         return {k: gather(v, self.layer_pl[k], self, self.skip)
@@ -149,6 +166,33 @@ def check_placements(params, shardings, where: str = "") -> None:
         if pl != tuple(shardings[k].placements):
             raise ValueError(f"param {where}{k} is placed {pl}, the model's "
                              f"param_shardings say {shardings[k].placements}")
+
+
+def local_tree(params, spmd: Spmd):
+    """Every DTensor leaf of ``params`` as this rank's compute weight,
+    gathered once over the axes ``spmd`` does not keep (serving: the
+    weights do not change, so no layer regathers them)."""
+    if isinstance(params, dict):
+        return {k: local_tree(v, spmd) for k, v in params.items()}
+    return gather(*dtensor_leaf(params), spmd)
+
+
+def zeros_sharded(shape, dtype, device, sharding):
+    """A zero DTensor of global ``shape`` placed by ``sharding``; each
+    rank allocates its own shard only (every split dim divides)."""
+    from torch.distributed.tensor import DTensor
+
+    local = list(shape)
+    for a, pl in zip(sharding.mesh.mesh_dim_names, sharding.placements):
+        if pl.is_shard():
+            n = sharding.mesh.size(sharding.mesh.mesh_dim_names.index(a))
+            if local[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(shape)} does not "
+                                 f"split over axis {a!r} of size {n}")
+            local[pl.dim] //= n
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              sharding.mesh, sharding.placements,
+                              run_check=False)
 
 
 def layer_placements(layers: Dict[str, Any]) -> Dict[str, tuple]:

@@ -107,13 +107,15 @@ class MeshSpec:
 
 def init_process_group(rank: int, world_size: int, device=None,
                        store_path: Optional[str] = None,
-                       init_method: Optional[str] = None):
+                       init_method: Optional[str] = None, timeout=None):
     """Join this process to the default process group and return its
     device. The backend follows the device: NCCL for a CUDA card (``None``
     means the card; without one this raises), gloo for ``"cpu"``. The
     rendezvous is a ``FileStore`` at ``store_path`` when given, else
     ``init_method`` (default ``"env://"``: ``MASTER_ADDR`` /
-    ``MASTER_PORT`` from the environment); no port is fixed here."""
+    ``MASTER_PORT`` from the environment); no port is fixed here.
+    ``timeout`` (a ``timedelta``, default torch's) bounds the rendezvous
+    and every collective of the group."""
     import torch
     import torch.distributed as dist
 
@@ -123,13 +125,14 @@ def init_process_group(rank: int, world_size: int, device=None,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = "nccl" if device.type == "cuda" else "gloo"
+    kw = {} if timeout is None else {"timeout": timeout}
     if store_path is not None:
         store = dist.FileStore(store_path, world_size)
         dist.init_process_group(backend, store=store, rank=rank,
-                                world_size=world_size)
+                                world_size=world_size, **kw)
     else:
         dist.init_process_group(backend, init_method=init_method or "env://",
-                                rank=rank, world_size=world_size)
+                                rank=rank, world_size=world_size, **kw)
     return device
 
 

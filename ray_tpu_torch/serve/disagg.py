@@ -78,6 +78,12 @@ class DisaggPagedEngine(PagedLLMEngine):
         anyway, so diverting them would only add a handoff).
     """
 
+    # the reference builds its staging pools under the engine's mesh; the
+    # port's prefill workers are threads of one process
+    _TP_WAITS = ("DisaggPagedEngine under tensor parallelism is not ported "
+                 "yet (ROADMAP queue 1, 'Tensor-parallel serving: what "
+                 "waits')")
+
     def __init__(self, *args, prefill_workers: Optional[int] = None,
                  handoff_timeout_s: float = 5.0,
                  divert_min_tokens: Optional[int] = None, **kw):

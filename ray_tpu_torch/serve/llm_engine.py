@@ -18,6 +18,11 @@ copies too, so nothing in the loop synchronises the card.
 
 PyTorch runs eagerly: there is nothing to compile ahead, so the engine
 has no ``_precompile``.
+
+Tensor parallelism (``tp=N`` or ``mesh=``) runs one process per rank
+(``serve/tp.py``): this engine is rank 0 and keeps the mailbox and every
+host decision; each device call (``_op_*``) is broadcast to the other
+ranks, which run it on their shards (``_follow``).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import llama, llama_decode
+from ray_tpu_torch.serve import tp as tp_group
 
 log = logging.getLogger(__name__)
 
@@ -75,7 +81,23 @@ class LLMEngine:
     weights (converted from ``ray_tpu`` or shared between engines)
     instead of ``init_params(cfg, seed=0)``; ``device`` defaults to the
     CUDA card and raises without one (pass ``"cpu"`` to run on the host).
+
+    ``tp=N`` serves over N ranks this engine starts (one device each:
+    ``cuda:0`` .. ``cuda:N-1``, or N gloo ranks on the CPU); ``mesh=`` over
+    the ranks of the caller's process group, where every rank builds the
+    engine with the same arguments and every rank but 0 follows rank 0's
+    device calls inside its constructor until rank 0 shuts down (its
+    ``submit`` raises). Rank 0's weights are scattered to the ranks; the
+    other ranks' ``params`` are not read. The kernels run on each rank's
+    local heads (the reference turns its kernels off under a mesh).
     """
+
+    # the attributes a follower takes from rank 0 before it builds the
+    # device programs (subclasses add theirs)
+    _TP_SHARED = ("_cfg", "_num_slots", "_max_len", "_buckets", "_top_k",
+                  "_seed")
+    # what a subclass that cannot serve under tp names instead
+    _TP_WAITS: Optional[str] = None
 
     def __init__(self, model_config: Optional[dict] = None,
                  num_slots: int = 8, max_len: int = 256,
@@ -87,13 +109,36 @@ class LLMEngine:
                  params: Optional[Dict[str, Any]] = None, device=None):
         cfg_kw = dict(model_config or {})
         hf_model = cfg_kw.pop("hf_model", None)
-        if tp > 1 or mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp > 1 or a mesh) is not ported "
-                "yet; ray_tpu_torch serves on one card")
         preset = cfg_kw.pop("preset", "tiny")
         quantize = cfg_kw.pop("quantize", None)
         self._device = llama.resolve_device(device)
+        self._mesh = mesh
+        self._link = None
+        self._fatal: Optional[BaseException] = None
+        sharded = tp > 1 or mesh is not None
+        if sharded:
+            if self._TP_WAITS is not None:
+                raise NotImplementedError(self._TP_WAITS)
+            if mesh is None and self._device.type == "cuda" \
+                    and torch.cuda.device_count() < tp:
+                raise ValueError(f"tp={tp} needs {tp} devices, found "
+                                 f"{torch.cuda.device_count()}")
+            if mesh is None and torch.distributed.is_initialized():
+                raise ValueError(
+                    f"LLMEngine(tp={tp}) starts a process group of its own, "
+                    "and this process already holds one: run one engine "
+                    "process per rank in that group and pass mesh= instead")
+        if quantize not in (None, "int8"):
+            raise ValueError(
+                f"unsupported quantize={quantize!r} (only 'int8')")
+        if sharded and quantize is not None:
+            raise ValueError(
+                "quantize='int8' currently serves single-chip "
+                "(tp=1); drop quantize or tp")
+        if mesh is not None and torch.distributed.get_rank() != 0:
+            self._link = tp_group.Link(mesh)
+            self._follow()
+            return
         if hf_model is not None:
             if params is not None:
                 raise ValueError("pass hf_model or params=, not both")
@@ -117,10 +162,8 @@ class LLMEngine:
         self._cfg = cfg
         self._params = (params if params is not None else
                         llama.init_params(cfg, 0, self._device))
+        del params   # so that the placement below can free a whole tree
         if quantize is not None:
-            if quantize != "int8":
-                raise ValueError(
-                    f"unsupported quantize={quantize!r} (only 'int8')")
             self._params = llama_decode.quantize_decode_params(self._params)
         self._num_slots = num_slots
         self._max_len = max_len
@@ -136,8 +179,25 @@ class LLMEngine:
         self._seed = int(sampling_seed)
         self._gen = torch.Generator(device=self._device)
         self._gen.manual_seed(self._seed)
-
-        self._init_programs()
+        if sharded:
+            # the other ranks join now, then every rank builds its shard
+            # (the whole copy is dropped)
+            self._link = (tp_group.Link(mesh) if mesh is not None else
+                          tp_group.spawn(type(self), tp, self._device))
+            self._mesh = self._link.mesh
+            try:
+                self._link.share({k: getattr(self, k)
+                                  for k in self._TP_SHARED})
+                self._params = tp_group.place_params(
+                    self._params, llama.param_shardings(cfg, self._mesh),
+                    self._link, self._device)
+                self._init_programs()
+            except BaseException:
+                self._link.close()
+                raise
+        else:
+            self._init_programs()
+        self._spmd = llama_decode.serving_spmd(self._mesh)
         # tokens decoded per dispatched chunk, a power of two
         chunk_steps = max(1, int(chunk_steps))
         self._chunk_steps = 1 << (chunk_steps.bit_length() - 1)
@@ -146,10 +206,7 @@ class LLMEngine:
 
         # on-device chain state: the last sampled token and next write
         # position per slot, produced by one chunk, consumed by the next
-        self._chain_toks = torch.zeros((num_slots,), dtype=torch.int32,
-                                       device=self._device)
-        self._chain_pos = torch.zeros((num_slots,), dtype=torch.int32,
-                                      device=self._device)
+        self._zero_chain()
 
         # slot bookkeeping (host side)
         self._free = list(range(num_slots))
@@ -175,17 +232,75 @@ class LLMEngine:
                                         name="llm-engine")
         self._thread.start()
 
+    def _zero_chain(self):
+        self._chain_toks = torch.zeros((self._num_slots,), dtype=torch.int32,
+                                       device=self._device)
+        self._chain_pos = torch.zeros((self._num_slots,), dtype=torch.int32,
+                                      device=self._device)
+
     def _init_programs(self):
         """Bind the model functions and allocate the device cache.
         PagedLLMEngine overrides this (and the admission/dispatch hooks)
         to swap the dense slot cache for the page pool."""
         (self._prefill_batch, self._insert_many, _,
          self._decode_chunk) = llama_decode.make_engine_fns(
-            self._cfg, self._params, self._num_slots, self._max_len)
+            self._cfg, self._params, self._num_slots, self._max_len,
+            mesh=self._mesh)
         # burst admission: up to this many prompts prefill in one batch
         self._admit_batch = max(1, min(8, self._num_slots))
         self._cache = llama_decode.init_cache(
-            self._cfg, self._num_slots, self._max_len, self._device)
+            self._cfg, self._num_slots, self._max_len, self._device,
+            mesh=self._mesh)
+
+    # ---- tensor parallelism (serve/tp.py) -----------------------------------
+
+    def _follow(self):
+        """A follower rank: take rank 0's settings and weight shards, build
+        the same programs, then run each device call rank 0 broadcasts
+        until it shuts down."""
+        settings = self._link.share()
+        if not isinstance(settings, dict):   # rank 0 failed to start
+            self._link.close()
+            return
+        self.__dict__.update(settings)
+        self._spmd = llama_decode.serving_spmd(self._mesh)
+        self._gen = torch.Generator(device=self._device)
+        self._gen.manual_seed(self._seed)
+        self._params = tp_group.place_params(
+            None, llama.param_shardings(self._cfg, self._mesh), self._link,
+            self._device)
+        self._init_programs()
+        self._zero_chain()
+        with torch.no_grad():
+            while True:
+                op, args = self._link.recv()
+                if op == "shutdown":
+                    break
+                if not op.startswith("_op_"):
+                    raise ValueError(f"follower: unknown command {op!r}")
+                try:
+                    getattr(self, op)(*args)
+                except Exception:  # noqa: BLE001 — rank 0 fails the step
+                    log.exception("follower step %s failed", op)
+        self._link.close()
+
+    def _device_call(self, op: str, *args):
+        """Run device call ``op`` (an ``_op_*`` method) here, after sending
+        it to the followers under tp. A broken group raises
+        ``TpGroupError``."""
+        if self._link is None:
+            return getattr(self, op)(*args)
+        try:
+            self._link.send(op, args)
+            return getattr(self, op)(*args)
+        except tp_group.TpGroupError:
+            raise
+        except RuntimeError as e:
+            self._link.check_alive()
+            if isinstance(e, torch.distributed.DistError):
+                raise tp_group.TpGroupError(
+                    f"tensor-parallel collective failed: {e!r}") from e
+            raise
 
     # ---- mailbox (called from the actor's request thread) ------------------
 
@@ -197,6 +312,12 @@ class LLMEngine:
         masks the tail). ``stop_ids``: extra per-request stop tokens
         (kept in the output). A duplicate ``req_id`` is dropped, so a
         router replay of a delivered submit runs the generation once."""
+        if self._link is not None and self._link.rank != 0:
+            raise RuntimeError("submit goes to rank 0's engine; this rank "
+                               "follows it")
+        if self._fatal is not None:
+            raise RuntimeError(f"engine stopped: {self._fatal!r}") \
+                from self._fatal
         now = time.monotonic()
         with self._done_lock:
             if len(self._seen_ids) > 2048:
@@ -272,6 +393,9 @@ class LLMEngine:
 
     def shutdown(self):
         self._stop = True
+        if self._link is not None and self._link.rank == 0:
+            # the engine thread stops the followers as it exits
+            self._thread.join(timeout=tp_group.TP_TIMEOUT_S)
 
     # ---- engine loop -------------------------------------------------------
 
@@ -285,11 +409,9 @@ class LLMEngine:
 
     def _first_tokens(self, logits: torch.Tensor, temps: np.ndarray):
         """Each prompt's first token, on the device."""
-        if temps.any():
-            return llama_decode.sample_tokens(
-                logits, self._gen, self._h2d(temps, torch.float32),
-                self._top_k)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return llama_decode.pick_tokens(
+            logits, self._gen, self._h2d(temps, torch.float32), self._top_k,
+            bool(temps.any()), self._spmd)
 
     def _merge(self, firsts: torch.Tensor, slots: np.ndarray,
                valid: np.ndarray, new_pos: np.ndarray) -> None:
@@ -357,13 +479,13 @@ class LLMEngine:
                     slots[i], valid[i] = slot, True
                     temps[i] = temp
                     plens[i] = len(toks)
-                logits, kv = self._prefill_batch(self._h2d(rows),
-                                                 self._h2d(last))
-                self._cache = self._insert_many(self._cache, kv, slots,
-                                                valid)
-                firsts = self._first_tokens(logits, temps)
-                self._merge(firsts, slots, valid, plens)
-                firsts_h = _HostCopy(firsts)
+                firsts_h = _HostCopy(self._device_call(
+                    "_op_admit", rows, last, slots, valid, temps, plens))
+            except tp_group.TpGroupError as e:
+                for req_id, _, _, _, _, _, slot in batch:
+                    self._free.append(slot)
+                    self._fail_request(req_id, e)
+                raise
             except Exception as e:  # noqa: BLE001 — fail THESE requests
                 log.exception("prefill failed")
                 for req_id, _, _, _, _, _, slot in batch:
@@ -388,6 +510,15 @@ class LLMEngine:
             self._inflight.append(("admit", {"firsts": firsts_h,
                                              "batch": entries}))
         return admitted
+
+    def _op_admit(self, rows, last, slots, valid, temps, plens):
+        """Device call: prefill a batch, insert it into its slots, pick
+        the first tokens and splice them into the chain state."""
+        logits, kv = self._prefill_batch(self._h2d(rows), self._h2d(last))
+        self._cache = self._insert_many(self._cache, kv, slots, valid)
+        firsts = self._first_tokens(logits, temps)
+        self._merge(firsts, slots, valid, plens)
+        return firsts
 
     def _maybe_finish(self, slot: int, last_token: int) -> bool:
         toks = self._slot_tokens[slot]
@@ -422,18 +553,54 @@ class LLMEngine:
         been cut midway, so rebuild everything the dispatch chain
         touches."""
         self._inflight.clear()
+        self._device_call("_op_reset")
+
+    def _op_reset(self):
         self._cache = llama_decode.init_cache(
-            self._cfg, self._num_slots, self._max_len, self._device)
-        self._chain_toks = torch.zeros_like(self._chain_toks)
-        self._chain_pos = torch.zeros_like(self._chain_pos)
+            self._cfg, self._num_slots, self._max_len, self._device,
+            mesh=self._mesh)
+        self._zero_chain()
+
+    def _fail_request(self, req_id: str, err: BaseException) -> None:
+        with self._done_lock:
+            if self._cancelled.pop(req_id, None) is None:
+                self._done[req_id] = RuntimeError(f"engine stopped: {err!r}")
+
+    def _fail_all(self, err: BaseException) -> None:
+        """The tensor-parallel group broke: every request the engine holds
+        fails with ``err``, and the engine stops."""
+        self._fatal = err
+        for req_id in list(self._slot_req.values()) + [
+                item[0] for item in self._parked_and_queued()]:
+            self._fail_request(req_id, err)
+        self._slot_req.clear()
+        self._stop = True
+
+    def _parked_and_queued(self) -> List[tuple]:
+        out = []
+        while True:
+            try:
+                out.append(self._in.get_nowait())
+            except queue.Empty:
+                return out
 
     def _run(self):
+        try:
+            self._loop()
+        finally:
+            if self._link is not None:
+                self._link.close()
+
+    def _loop(self):
         with torch.no_grad():
             if self._device.type == "cuda":
                 torch.cuda.set_device(self._device)
             while not self._stop:
                 try:
                     self._tick()
+                except tp_group.TpGroupError as e:
+                    log.error("tensor-parallel group lost: %r", e)
+                    self._fail_all(e)
                 except Exception as e:  # noqa: BLE001 — fail in-flight, live on
                     log.exception("engine step failed")
                     failed = list(self._slot_req.items())
@@ -447,7 +614,10 @@ class LLMEngine:
                     for slot, _ in failed:
                         self._slot_req.pop(slot, None)
                         self._drop_slot(slot)
-                    self._reset_device_state()
+                    try:
+                        self._reset_device_state()
+                    except tp_group.TpGroupError as e2:
+                        self._fail_all(e2)
 
     def _prepare_dispatch(self, elig: List[int], k: int) -> List[int]:
         """Hook: reserve what the chunk needs for ``k`` more tokens per
@@ -459,12 +629,18 @@ class LLMEngine:
         """Hook: called when _prepare_dispatch returned no slots."""
 
     def _run_chunk(self, act, k, temps, sampling):
-        """Hook: run the decode chunk (the paged engine adds its block
-        table); updates the cache and chain state, returns [k, S]."""
+        """Run the decode chunk (host inputs: ``act`` and ``temps`` [S]);
+        updates the cache and chain state, returns [k, S]."""
+        return self._device_call("_op_chunk", act, k, temps, sampling)
+
+    def _op_chunk(self, act, k, temps, sampling):
+        """Device call: one decode chunk (the paged engine adds its block
+        table)."""
         (self._cache, out, self._chain_toks, self._chain_pos) = \
             self._decode_chunk(
                 self._cache, self._chain_toks, self._chain_pos, act, k,
-                self._gen, temps, self._top_k if sampling else 0, sampling)
+                self._gen, self._h2d(temps), self._top_k if sampling else 0,
+                sampling)
         return out
 
     def _dispatch(self) -> bool:
@@ -497,7 +673,7 @@ class LLMEngine:
             act[s] = True
             temps[s] = self._slot_temp.get(s, 0.0)
         sampling = bool(temps.any())
-        out = self._run_chunk(act, k, self._h2d(temps), sampling)
+        out = self._run_chunk(act, k, temps, sampling)
         self._inflight.append(("chunk", {
             "out": _HostCopy(out),
             "slots": {s: self._slot_req[s] for s in ready}}))

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models import llama_paged
+from ray_tpu_torch.serve import tp as tp_group
 from ray_tpu_torch.serve.llm_engine import LLMEngine, _bucket, _HostCopy
 
 log = logging.getLogger(__name__)
@@ -144,8 +145,15 @@ class PagedLLMEngine(LLMEngine):
     use_kernel: the reference's switch for decode attention: None (the
         default) takes ``ops.paged_attention``, the CUDA kernel on the
         card and its plain version on the CPU; False the plain gather on
-        either device; True the kernel, and raises on the CPU.
+        either device; True the kernel, and raises on the CPU. Under tp
+        the kernel runs on each rank's KV heads.
+
+    Under tp the block tables are rank 0's; a chunk carries them to the
+    followers when they changed.
     """
+
+    _TP_SHARED = LLMEngine._TP_SHARED + ("_page_size", "_num_pages_arg",
+                                         "_use_kernel")
 
     def __init__(self, *args, page_size: int = 64,
                  num_pages: Optional[int] = None,
@@ -168,9 +176,9 @@ class PagedLLMEngine(LLMEngine):
         self._alloc = _PageAllocator(num_pages, ps)
         self._prefill_chunk, self._decode_chunk = \
             llama_paged.make_paged_engine_fns(self._cfg, self._params,
-                                              self._use_kernel)
+                                              self._mesh, self._use_kernel)
         self._cache = llama_paged.init_paged_cache(
-            self._cfg, num_pages, ps, self._device)
+            self._cfg, num_pages, ps, self._device, mesh=self._mesh)
         # chunked prefill replaces the dense engine's max_len-1 overflow
         # bucket: long prompts run as a sequence of bucket-sized chunks
         self._buckets = ([b for b in self._buckets
@@ -189,14 +197,21 @@ class PagedLLMEngine(LLMEngine):
         self._retry: "collections.deque[tuple]" = collections.deque()
 
     def _reset_device_state(self):
-        self._inflight.clear()
-        self._cache = llama_paged.init_paged_cache(
-            self._cfg, self._alloc.num_pages, self._page_size, self._device)
-        self._chain_toks = torch.zeros_like(self._chain_toks)
-        self._chain_pos = torch.zeros_like(self._chain_pos)
+        super()._reset_device_state()
         # page contents are gone: cached prefixes must not be reused
         self._alloc.clear_prefix_cache()
+
+    def _op_reset(self):
+        self._cache = llama_paged.init_paged_cache(
+            self._cfg, self._alloc.num_pages, self._page_size, self._device,
+            mesh=self._mesh)
+        self._zero_chain()
         self._bt_dirty = True
+
+    def _parked_and_queued(self) -> List[tuple]:
+        out = list(self._retry)
+        self._retry.clear()
+        return out + super()._parked_and_queued()
 
     # ---- slot lifecycle --------------------------------------------------
 
@@ -271,6 +286,11 @@ class PagedLLMEngine(LLMEngine):
             self._set_bt_row(slot, pages)
             try:
                 firsts = self._run_prefill(slot, toks, matched, temp)
+            except tp_group.TpGroupError as e:
+                self._slot_hashes[slot] = []
+                self._drop_slot(slot)
+                self._fail_request(req_id, e)
+                raise
             except Exception as e:  # noqa: BLE001 — fail THIS request
                 log.exception("prefill failed")
                 # this slot's fresh pages hold no valid K/V: they must
@@ -313,7 +333,16 @@ class PagedLLMEngine(LLMEngine):
                      temp: float) -> _HostCopy:
         """Chunked prefill of toks[ctx0:]; returns the first token's
         host copy (reaped asynchronously)."""
-        bt_row = self._h2d(self._bt_np[slot].copy())
+        self._prefill_tokens_computed += len(toks) - ctx0
+        return _HostCopy(self._device_call(
+            "_op_prefill", slot, self._bt_np[slot].copy(),
+            np.asarray(toks, np.int32), ctx0, temp))
+
+    def _op_prefill(self, slot: int, bt_row: np.ndarray, toks: np.ndarray,
+                    ctx0: int, temp: float) -> torch.Tensor:
+        """Device call: the prompt's chunks from ``ctx0`` on through the
+        pool, then its first token spliced into the chain state."""
+        bt_row = self._h2d(bt_row)
         logits = None
         plen = len(toks)
         while ctx0 < plen:
@@ -323,12 +352,11 @@ class PagedLLMEngine(LLMEngine):
             row[0, :n] = toks[ctx0:ctx0 + n]
             self._cache, logits = self._prefill_chunk(
                 self._cache, self._h2d(row), bt_row, ctx0, n)
-            self._prefill_tokens_computed += n
             ctx0 += n
         firsts = self._first_tokens(logits, np.array([temp], np.float32))
         self._merge(firsts, np.array([slot]), np.array([True]),
                     np.array([plen], np.int32))
-        return _HostCopy(firsts)
+        return firsts
 
     # ---- dispatch hooks: grow block tables, paged chunk ------------------
 
@@ -363,10 +391,19 @@ class PagedLLMEngine(LLMEngine):
         self._drop_slot(victim)
 
     def _run_chunk(self, act, k, temps, sampling):
+        bt = self._bt_np.copy() if self._bt_dirty else None
+        return self._device_call("_op_chunk", act, k, temps, sampling, bt)
+
+    def _op_chunk(self, act, k, temps, sampling, bt=None):
+        """Device call: one paged decode chunk; ``bt`` is rank 0's block
+        table when it changed since the last chunk."""
+        if bt is not None:
+            self._bt_np = bt
+            self._bt_dirty = True
         (self._cache, out, self._chain_toks, self._chain_pos) = \
             self._decode_chunk(
                 self._cache, self._chain_toks, self._chain_pos, act,
-                self._bt_device(), k, self._gen, temps,
+                self._bt_device(), k, self._gen, self._h2d(temps),
                 self._top_k if sampling else 0, sampling)
         return out
 
@@ -377,6 +414,7 @@ class PagedLLMEngine(LLMEngine):
         """The K/V contents of ``pages`` (pool indices) as a pair of
         [L, n, KVH, page, hd] tensors. ``cache`` defaults to this
         engine's pool. The caller holds refs on the pages meanwhile."""
+        self._single_card("export_pages")
         cache = self._cache if cache is None else cache
         idx = self._h2d(np.asarray(pages, np.int64))
         return (cache["k"].index_select(1, idx),
@@ -390,6 +428,7 @@ class PagedLLMEngine(LLMEngine):
         are skipped. Returns the number of pages adopted (0, with
         nothing allocated, when the pool cannot cover or all are
         cached). Engine-thread only, like every cache update."""
+        self._single_card("import_pages")
         alloc = self._alloc
         keep = [i for i, h in enumerate(hashes)
                 if h not in alloc.hash2page]
@@ -409,6 +448,13 @@ class PagedLLMEngine(LLMEngine):
             alloc.register(hashes[i], pg)
             alloc.release(pg)
         return len(keep)
+
+    def _single_card(self, what: str) -> None:
+        if self._mesh is not None:
+            raise NotImplementedError(
+                f"{what} under tensor parallelism is not ported yet (ROADMAP "
+                "queue 1, 'Tensor-parallel serving: what waits'): each "
+                "rank holds its KV-head shard of the pool")
 
     def residency_digest(self, max_entries: int = 4096) -> dict:
         """Bounded snapshot of the cached prefix fingerprints, for

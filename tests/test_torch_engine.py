@@ -284,17 +284,19 @@ def test_export_import_pages_roundtrip():
 
 
 def test_unported_options_raise():
-    """tp/mesh are not ported; an hf_model outside the llama family
-    (gpt2, mixtral) is refused before its weights load, with the
-    reference's ValueError."""
+    """int8 weights under tensor parallelism, and an hf_model outside the
+    llama family (gpt2, mixtral), are refused before any weights load or
+    any rank starts, with the reference's ValueErrors."""
     from transformers import GPT2Config, GPT2LMHeadModel
 
     gpt2 = GPT2LMHeadModel(GPT2Config(vocab_size=64, n_embd=32, n_layer=1,
                                       n_head=2, n_positions=32))
     with pytest.raises(ValueError, match="llama-family.*'gpt2'"):
         LLMEngine(model_config={"hf_model": gpt2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        LLMEngine(tp=2, device="cpu")
+    with pytest.raises(ValueError, match="quantize='int8' currently serves "
+                       r"single-chip \(tp=1\); drop quantize or tp"):
+        LLMEngine(model_config={"preset": "tiny", "quantize": "int8"}, tp=2,
+                  device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         LLMEngine(model_config={"preset": "tiny", "quantize": "int4"},
                   device="cpu")

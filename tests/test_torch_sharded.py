@@ -13,6 +13,8 @@ numpy) and tokens. Losses at 1e-5 relative, gathered gradients
   remat, and its global logits from ``forward(mesh=)``);
 - Llama tiny with q/k/v biases, tied embeddings and a loss mask on
   {dp 2, fsdp 2, tp 2} (the vocabulary split over tp for the tied head);
+- Llama tiny (2 KV heads) on {dp 2, tp 4}, without and with q/k/v
+  biases (and its global logits): tp does not divide the KV heads;
 - Mixtral tiny on {dp 2, ep 4}, and with a capacity low enough that
   tokens overflow: the same (token, choice) pairs drop, ``moe_layer``'s
   outputs and aux loss match, and on {dp 2, sp 2, ep 2} with ring
@@ -63,6 +65,12 @@ SCENARIOS = {
                 {"pp": 2, "sp": 2, "dp": 2}, (8, 33), 4, False, (7, 8)),
     "pp_ulysses": ("llama", dict(TINY_SEQ, attn_impl="ulysses"),
                    {"pp": 2, "sp": 2, "dp": 2}, (8, 33), 4, False, (7, 8)),
+    # tp 4 over the tiny preset's 2 KV heads: each rank gathers q/k/v
+    # from its column shards (heads_gathered), as GSPMD does
+    "gqa_tp4": ("llama", {}, {"dp": 2, "tp": 4}, (4, 17), 0, False,
+                (20, 21)),
+    "gqa_tp4_bias": ("llama", {"attn_qkv_bias": True}, {"dp": 2, "tp": 4},
+                     (4, 17), 0, True, (22, 23)),
     "two_slice": ("llama", {}, ("hybrid", {"fsdp": 4}, {"dp": 2}), (8, 33),
                   0, False, (0, 3)),
     "flat_fsdp8": ("llama", {}, {"fsdp": 8}, (8, 33), 0, False, (0, 3)),
@@ -75,7 +83,7 @@ RECORDED = {"ring_tp_sp_fsdp": "dryrun_multichip ok",
             "pp_ring": "dryrun pp x ring-attention ok",
             "pp_ulysses": "dryrun pp x ulysses ok",
             "two_slice": "dryrun two-slice ok"}
-LOGITS = "ring_tp_sp_fsdp"
+LOGITS = ("ring_tp_sp_fsdp", "gqa_tp4")
 DROP = "moe_drop"
 
 # param_shardings / cache shardings cases: name -> (model, overrides, axes)
@@ -135,7 +143,7 @@ def _run(name, tree, batch, extra):
     loss.backward()
     rec = {"loss": float(loss), "grads": _grads(params)}
     with torch.no_grad():
-        if name == LOGITS:
+        if name in LOGITS:
             rec["logits"] = llama.forward(cfg, params, batch["tokens"][:, :-1],
                                           mesh=mesh).numpy()
         if name == DROP:
@@ -364,14 +372,16 @@ def test_pipeline_losses_match_sequential(run):
 
 
 def test_forward_mesh_gives_global_logits(run):
+    """Ring over {tp 2, sp 2, fsdp 2}, and tp 4 over 2 KV heads."""
     from ray_tpu.models import llama as jl
 
-    cfg, params, batch = run["data"][LOGITS]
-    want = np.asarray(jl.forward(cfg, params, batch["tokens"][:, :-1],
-                                 mesh=_jax_mesh(SCENARIOS[LOGITS][2])))
-    for out in run["res"]:
-        np.testing.assert_allclose(out[LOGITS]["logits"], want, atol=2e-5,
-                                   rtol=1e-5)
+    for name in LOGITS:
+        cfg, params, batch = run["data"][name]
+        want = np.asarray(jl.forward(cfg, params, batch["tokens"][:, :-1],
+                                     mesh=_jax_mesh(SCENARIOS[name][2])))
+        for out in run["res"]:
+            np.testing.assert_allclose(out[name]["logits"], want, atol=2e-5,
+                                       rtol=1e-5)
 
 
 def test_moe_drops_the_reference_tokens(run):
