@@ -128,13 +128,36 @@ Phases, each printing what it finds; any failure exits non-zero:
    phase 3's; the engine's peak memory on top of the weights stays below
    a second copy of them; ``LLMEngine(tp=2)`` on one card raises the
    reference's ValueError.
+13. sharded checkpoints, the predictor, and disaggregated serving and
+   page export/import under ``mesh=``. (a) Phase 5's run (rebuilt from
+   ``profile_train``) after its 5 AdamW steps: params and AdamW state
+   through ``train.dist_checkpoint.save`` into the temporary directory
+   (its free space printed first; the params alone if it cannot hold
+   both), freed, restored into fresh tensors on the card: every leaf's
+   checksum (the sum of its bytes as integers) and the step-6 loss
+   equal those from before the save, bit for bit; save and restore
+   seconds and GB/s. (b) ``TorchPredictor.from_checkpoint`` over the
+   same checkpoint, ``llama.forward`` on 8 x 512 tokens: the argmax
+   equals the in-memory forward's, the flash forward launches once a
+   layer on the wgmma route; the predict time. (c) at world size 1 over
+   NCCL, phase 9's disaggregated engine (2 workers) with ``mesh={tp
+   1}``: fp32 at 2 layers gives phase 9(a)'s paged tokens for 8/8
+   requests; bf16 at 32 layers on phase 3's weights and requests hands
+   off every prompt of 128 tokens or more, leaks no page, and prints
+   TTFT and ITL p50/p99 beside 9(b)'s and how many transcripts equal
+   9(b)'s (bf16 disaggregated transcripts differ between runs: the two
+   workers race for q7, whose worker may hold q1's pages in its staging
+   cache); q1's pages exported from one ``mesh={tp 1}`` paged engine
+   and imported into another, where q7 hits them (128 tokens) and
+   decodes the exporter's q7 tokens.
 
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
 3 and 6, of the backward kernels from phases 5 and 7's Gemma run, of
 the fp32 scalar kernels from phase 2's Llama dense engine and phase 4's
 Llama and Gemma runs; the d-128 wgmma rows add phase 11's sharded
-runs, the d-128 forward and G-4 paged rows phase 12's engines);
+runs and phase 13's training, losses and predictor, the d-128 forward
+and G-4 paged rows phase 12's engines, the G-4 paged row phase 13's);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -1700,12 +1723,13 @@ def _serve_once(make, reqs_first, reqs_last, timeout_s):
     return eng, out
 
 
-def disagg_fp32_phase(dev) -> None:
+def disagg_fp32_phase(dev) -> dict:
     """9(a): fp32 Llama-3-8B width, 2 layers: the disaggregated engine
     (2 prefill workers, divert floor 128) gives the plain paged engine's
     greedy tokens on phase 3's requests, with every prompt of 128 tokens
     or more diverted and handed off, and none lost or leaked under a
-    dropped handoff and a killed worker."""
+    dropped handoff and a killed worker. Returns the paged engine's
+    tokens."""
     from dataclasses import replace
 
     from ray_tpu_torch.core import fault_injection
@@ -1759,6 +1783,7 @@ def disagg_fp32_phase(dev) -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return want
 
 
 def disagg_serve_phase(dev) -> dict:
@@ -1835,7 +1860,8 @@ def disagg_serve_phase(dev) -> dict:
                   f"{staging:.1f} MiB per worker (2 workers)", flush=True)
         result[name] = {"tokens": {r: v["tokens"] for r, v in out.items()},
                         "latency_ms": lat, "paged": n["paged"],
-                        "engine_mib": pool_mib}
+                        "engine_mib": pool_mib,
+                        "staging_hit": st.get("disagg_staging_hit_tokens")}
     same = sum(result["paged"]["tokens"][r] == result["disagg"]["tokens"][r]
                for r in result["paged"]["tokens"])
     print(f"  8B bf16: disagg and paged transcripts identical for {same}/8 "
@@ -2493,6 +2519,330 @@ def tp_serve_phase(dev, phase3: dict) -> dict:
             "paged_attention": out_launches["paged"][1]}
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+def _leaf_sums(tree, prefix="") -> dict:
+    """{leaf path: the sum of the leaf's bytes read as integers of its
+    element size} of every tensor leaf (the int64 sum of int32 words for
+    fp32, of int16 words for bf16)."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaf_sums(v, f"{prefix}{k}."))
+        elif isinstance(v, torch.Tensor):
+            words = v.detach().reshape(-1).view(ints[v.element_size()])
+            out[prefix + k] = int(words.sum(dtype=torch.int64))
+    return out
+
+
+def _train_state(params, opt) -> dict:
+    """Phase 5's run state as one tree: the params and AdamW's moments
+    and step counts, keyed by the params' leaf names."""
+    from ray_tpu_torch.models import llama
+
+    leaves = llama.param_leaves(params)
+    st = opt.state
+    return {"params": {n: p.detach() for n, p in leaves},
+            "exp_avg": {n: st[p]["exp_avg"] for n, p in leaves},
+            "exp_avg_sq": {n: st[p]["exp_avg_sq"] for n, p in leaves},
+            "adam_step": {n: st[p]["step"] for n, p in leaves}}
+
+
+def _tree_bytes(tree) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict) else
+               v.numel() * v.element_size() for v in tree.values()
+               if isinstance(v, (dict, torch.Tensor)))
+
+
+def _nested(flat: dict) -> dict:
+    """``{"layers.wq": t}`` -> ``{"layers": {"wq": t}}``."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        *head, last = name.split(".")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def _empty_like_tree(tree, dev) -> dict:
+    return {k: _empty_like_tree(v, dev) if isinstance(v, dict) else
+            (torch.empty(v[0], dtype=v[1], device=v[2] if v[2] == "cpu"
+                         else dev) if isinstance(v, tuple) else None)
+            for k, v in tree.items()}
+
+
+def _tree_meta(tree) -> dict:
+    """(shape, dtype, device type) of every tensor leaf; other leaves as
+    they are."""
+    return {k: _tree_meta(v) if isinstance(v, dict) else
+            ((tuple(v.shape), v.dtype, v.device.type)
+             if isinstance(v, torch.Tensor) else v)
+            for k, v in tree.items()}
+
+
+def checkpoint_phase(dev) -> dict:
+    """13(a) and (b): phase 5's run (``profile_train.build_train_run``,
+    5 AdamW steps) is saved with ``train.dist_checkpoint.save`` (params
+    and AdamW state, or the params alone when the temporary directory
+    cannot hold both), freed, and restored into fresh tensors on the
+    card: every leaf's checksum and the step-6 loss must be those from
+    before the save, bit for bit. Then ``TorchPredictor.from_checkpoint``
+    over the same checkpoint (the params restored onto the card) runs
+    ``llama.forward`` on 8 x 512 tokens: its argmax equals the in-memory
+    forward's, through the wgmma flash forward. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.tools import profile_train as run
+    from ray_tpu_torch.train import dist_checkpoint as dc
+    from ray_tpu_torch.train.predictor import TorchPredictor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters_reset()
+    cfg, params, opt, toks = run.build_train_run(dev)
+    for _ in range(5):
+        run.train_step(cfg, params, opt, toks)
+    opt.zero_grad(set_to_none=True)
+    batch = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (8, 512))).to(dev)
+    with torch.no_grad():
+        loss6 = llama.loss_fn(cfg, params, {"tokens": toks}).item()
+        want_argmax = llama.forward(cfg, params, batch).argmax(-1)
+    state = _train_state(params, opt)
+    state["step"] = 5
+    sums = _leaf_sums(state)
+    meta = _tree_meta(state)
+    state_bytes = _tree_bytes(state)
+    param_bytes = _tree_bytes(state["params"])
+    tmp = tempfile.mkdtemp(prefix="rtpu_ckpt_")
+    free = shutil.disk_usage(tmp).free
+    whole = free > 1.1 * state_bytes + (1 << 30)
+    print(f"  checkpoint directory {tmp}: {free / 1e9:.1f} GB free; the "
+          f"state (params and AdamW) is {state_bytes / 1e9:.2f} GB, the "
+          f"params {param_bytes / 1e9:.2f} GB: saving "
+          f"{'both' if whole else 'the params alone'}", flush=True)
+    check(whole or free > 1.1 * param_bytes + (1 << 30),
+          "the temporary directory cannot hold the params")
+    if not whole:
+        state = {"params": state["params"], "step": 5}
+        meta = _tree_meta(state)
+        sums = {k: v for k, v in sums.items() if k.startswith("params.")}
+    path = os.path.join(tmp, "ck")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dc.save(path, state)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        del state, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        like = _empty_like_tree(meta, dev)
+        like["step"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = dc.restore(path, like=like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = _leaf_sums(back)
+        bad = [k for k in sums if got.get(k) != sums[k]]
+        check(not bad and set(got) == set(sums),
+              f"restored checksums differ on {len(bad)} leaves: {bad[:4]}")
+        check(back["step"] == 5, f"restored step {back['step']!r}")
+        restored = _nested(back["params"])
+        with torch.no_grad():
+            loss6_back = llama.loss_fn(cfg, restored,
+                                       {"tokens": toks}).item()
+        print(f"  saved {size / 1e9:.2f} GB in {save_s:.2f} s "
+              f"({size / 1e9 / save_s:.2f} GB/s), restored in "
+              f"{restore_s:.2f} s ({size / 1e9 / restore_s:.2f} GB/s) to "
+              f"the card; {len(got)} leaf checksums equal; step-6 loss "
+              f"{loss6_back!r} from the restore, {loss6!r} before the save",
+              flush=True)
+        check(loss6_back == loss6, "the step-6 loss from the restored state "
+              "differs from the one before the save")
+        del back, like, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) the predictor over the same checkpoint
+        pmeta = {"params": meta["params"]}
+
+        def load_params(p):
+            return _nested(dc.restore(
+                p, like=_empty_like_tree(pmeta, dev))["params"])
+
+        pred = TorchPredictor.from_checkpoint(
+            path, lambda p, x: llama.forward(cfg, p, x),
+            load_params=load_params, device=dev)
+        host = {"data": batch.cpu().numpy()}
+        pred.predict(host)   # warm-up
+        before = counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred.predict(host)
+        predict_s = time.perf_counter() - t0
+        c = counters()
+        fwd = c["fwd"] - before["fwd"]
+        fwd_sm90 = c["fwd_sm90"] - before["fwd_sm90"]
+        same = bool(np.array_equal(out["predictions"].argmax(-1),
+                                   want_argmax.cpu().numpy()))
+        print(f"  TorchPredictor over the checkpoint: 8 x 512 tokens in "
+              f"{predict_s * 1e3:.1f} ms (logits to host numpy included); "
+              f"argmax equal to the in-memory forward's: {same}; flash "
+              f"forward launches {fwd} (wgmma {fwd_sm90})", flush=True)
+        check(same, "the predictor's argmax differs from the in-memory "
+              "forward's")
+        check(fwd == cfg.num_layers and fwd_sm90 == fwd,
+              f"predict launched the flash forward {fwd} times, {fwd_sm90} "
+              f"on the wgmma route; want {cfg.num_layers}, all wgmma")
+        del pred, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = counters()
+    check(c["fwd_sm90"] == c["fwd"] and c["dq_sm90"] == c["dq"]
+          and c["dkv_sm90"] == c["dkv"], f"phase 13 launches off the wgmma "
+          f"route: {c}")
+    return {"flash_attention_fwd": c["fwd"],
+            "flash_attention_bwd_dq": c["dq"],
+            "flash_attention_bwd_dkv": c["dkv"]}
+
+
+def tp_disagg_phase(dev, phase9a: dict, phase9b: dict) -> dict:
+    """13(c): at world size 1 over NCCL, phase 9's disaggregated engine
+    (2 workers, divert floor 128) with ``mesh={tp 1}``: in fp32 at 2
+    layers it gives phase 9(a)'s paged tokens for 8/8 requests, every
+    prompt of 128 tokens or more handed off, no page leaked; in bf16 at
+    32 layers (phase 3's weights and requests) TTFT and ITL beside
+    9(b)'s, and how many transcripts equal 9(b)'s (printed: bf16
+    disaggregated transcripts differ between runs, the two workers
+    racing for q7 among the causes). Then q1's pages exported from one
+    ``mesh={tp 1}`` bf16 paged engine and imported into another, where
+    q7 hits them (128 tokens) and decodes the exporter's q7 tokens.
+    Returns the paged launches."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel import init_process_group
+    from ray_tpu_torch.serve.disagg import DisaggPagedEngine
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    paged = 0
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(0, 1, dev, store_path=os.path.join(store, "pg"))
+        try:
+            mesh = build_mesh(MeshSpec({"tp": 1}))
+            dkw = dict(prefill_workers=2, divert_min_tokens=128,
+                       handoff_timeout_s=CLEAN_LEASE_S, device=dev,
+                       mesh=mesh, page_size=64)
+            cfg = replace(llama.LlamaConfig.llama3_8b(), num_layers=2,
+                          dtype=torch.float32, param_dtype=torch.float32)
+            params = llama.init_params(cfg, seed=0, device=dev)
+            first, last = serve_8b_requests(cfg.vocab_size)
+            n_div = sum(len(p) >= 128 for _, p in first + last)
+            counters_reset()
+            eng = DisaggPagedEngine(**dict(SERVE_8B, **dkw,
+                                           model_config=_model_config(cfg),
+                                           params=params))
+            out = drain(eng, first, 120)
+            out.update(drain(eng, last, 120))
+            st = eng.stats()
+            _stop_disagg(eng)
+            _check_disagg(st, n_div, "fp32 disagg mesh={tp 1}")
+            _check_pool(eng, "fp32 disagg mesh={tp 1}")
+            del eng, params
+            paged += counters()["paged"]
+            equal = sum(out[r]["tokens"] == phase9a[r] for r in phase9a)
+            print(f"  fp32 2-layer disagg mesh={{tp 1}}: tokens equal phase "
+                  f"9(a)'s paged engine's for {equal}/{len(phase9a)} "
+                  f"requests; diverted {st['disagg_diverted']}, handoffs "
+                  f"{st['disagg_handoffs']}", flush=True)
+            check(equal == len(phase9a), "fp32 disagg mesh={tp 1}: tokens "
+                  "differ from phase 9(a)'s paged engine's")
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                              param_dtype=torch.bfloat16)
+            params = llama.init_params(cfg, seed=0, device=dev)
+            kw = dict(SERVE_8B, params=params, device=dev, mesh=mesh,
+                      page_size=64)
+            counters_reset()
+            eng = DisaggPagedEngine(params=params, **dict(SERVE_8B, **dkw))
+            out = drain(eng, first, 300)
+            out.update(drain(eng, last, 120))
+            st = eng.stats()
+            _stop_disagg(eng)
+            _check_disagg(st, n_div, "8B bf16 disagg mesh={tp 1}")
+            _check_pool(eng, "8B bf16 disagg mesh={tp 1}")
+            del eng
+            c = counters()
+            check(c["paged"] > 0 and c["paged_merge"] == c["paged"],
+                  f"disagg mesh={{tp 1}}: paged launches {c}")
+            check(all(len(r["tokens"]) == 32 for r in out.values()),
+                  "disagg mesh={tp 1}: a request got fewer than 32 tokens")
+            paged += c["paged"]
+            want = phase9b["disagg"]
+            equal = sum(out[r]["tokens"] == want["tokens"][r] for r in out)
+            lat, ref = _latency_ms(out), want["latency_ms"]
+            print(f"  8B bf16 disagg mesh={{tp 1}}: tokens equal phase "
+                  f"9(b)'s disaggregated ones for {equal}/8 requests "
+                  f"(printed, not required in bf16; staging-cache reuse "
+                  f"{st['disagg_staging_hit_tokens']} tokens, 9(b) "
+                  f"{want['staging_hit']}); TTFT p50/p99 "
+                  f"{lat['ttft_p50']:.2f}/{lat['ttft_p99']:.2f} ms (9(b) "
+                  f"{ref['ttft_p50']:.2f}/{ref['ttft_p99']:.2f}), ITL "
+                  f"p50/p99 {lat['itl_p50']:.3f}/{lat['itl_p99']:.3f} ms "
+                  f"(9(b) {ref['itl_p50']:.3f}/{ref['itl_p99']:.3f}); "
+                  f"paged launches {c['paged']}", flush=True)
+            # export from one mesh={tp 1} engine, import into another
+            counters_reset()
+            src = PagedLLMEngine(**kw)
+            drain(src, first[1:2], 120)
+            alloc = src._alloc
+            q1 = first[1][1]
+            pages, hashes, _ = alloc.match_prefix(q1, len(q1))
+            k, v = src.export_pages(pages)
+            for pg in pages:
+                alloc.release(pg)
+            want_q7 = drain(src, last, 120)["q7"]["tokens"]
+            hit_src = src._prefix_hit_tokens
+            stop(src)
+            dst = PagedLLMEngine(**kw)
+            n_imp = dst.import_pages(k, v, hashes)
+            got_q7 = drain(dst, last, 120)["q7"]["tokens"]
+            hit_dst = dst._prefix_hit_tokens
+            stop(dst)
+            _check_pool(dst, "import mesh={tp 1}")
+            c = counters()
+            paged += c["paged"]
+            print(f"  export/import mesh={{tp 1}}: {len(pages)} pages of q1 "
+                  f"({tuple(k.shape)} each of k, v) imported {n_imp}; q7's "
+                  f"prefix hit {hit_dst} tokens (exporter {hit_src}); tokens "
+                  f"equal the exporter's: {got_q7 == want_q7}", flush=True)
+            check(n_imp == len(pages) == 2 and hit_dst == hit_src == 128,
+                  "export/import mesh={tp 1}: no prefix hit")
+            check(got_q7 == want_q7, "export/import mesh={tp 1}: q7's tokens "
+                  "differ from the exporter's")
+        finally:
+            dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_attention": paged}
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -2565,8 +2915,8 @@ def main() -> None:
     tiny_phase(dev)
     print("phase 9: disaggregated prefill/decode and the decode API: "
           "Llama-3-8B fp32 2 layers, then bf16 32 layers", flush=True)
-    disagg_fp32_phase(dev)
-    disagg_serve_phase(dev)
+    disagg_fp32 = disagg_fp32_phase(dev)
+    disagg = disagg_serve_phase(dev)
     decode_api_phase(dev)
     print("phase 10: the RL learners, card against CPU", flush=True)
     rl_phase(dev)
@@ -2577,6 +2927,11 @@ def main() -> None:
     print("phase 12: tensor-parallel serving at world size 1 over NCCL: "
           "Llama-3-8B bf16, both engines with mesh={tp 1}", flush=True)
     tp_serve = tp_serve_phase(dev, phase3)
+    print("phase 13: sharded checkpoints and the predictor (Llama-3-8B "
+          "width, 8 layers), then the disaggregated engine and page "
+          "export/import with mesh={tp 1}", flush=True)
+    ckpt = checkpoint_phase(dev)
+    tp_disagg = tp_disagg_phase(dev, disagg_fp32, disagg)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 scalar rows' from phase 2's
@@ -2603,9 +2958,11 @@ def main() -> None:
                       ("flash_attention_bwd_dq", "dq_sm90"),
                       ("flash_attention_bwd_dkv", "dkv_sm90")):
         launches[name] += sharded[key]
-    # and phase 12's engines the serving kernels
-    for name, n in tp_serve.items():
-        launches[name] += n
+    # and phase 12's engines the serving kernels, phase 13 the training
+    # kernels (its run, its losses, the predictor) and the paged kernel
+    for part in (tp_serve, ckpt, tp_disagg):
+        for name, n in part.items():
+            launches[name] += n
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     order = ("name", "route", "source", "replaces", "launches",

@@ -24,19 +24,23 @@ from ray_tpu_torch.models.llama import resolve_device
 def params_from_numpy(tree: Dict[str, Any], device=None,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Nested dicts of numpy arrays -> the same nesting of tensors on
-    ``device`` (``None``: the card, or raise without one). ``dtype`` (if
-    given) casts floating leaves; integer leaves keep theirs."""
+    ``device`` (``None``: the card, or raise without one); tensor leaves
+    are moved as they are. ``dtype`` (if given) casts floating leaves;
+    integer leaves keep theirs."""
     device = resolve_device(device)
 
     def conv(v):
         if isinstance(v, dict):
             return {k: conv(x) for k, x in v.items()}
-        a = np.asarray(v)
-        if a.dtype.kind not in "biuf" or (a.dtype.kind == "f" and
-                                          a.dtype.itemsize == 2 and
-                                          a.dtype != np.float16):
-            a = a.astype(np.float32)   # ml_dtypes bfloat16 from JAX
-        t = torch.from_numpy(np.array(a))   # a writable copy
+        if isinstance(v, torch.Tensor):
+            t = v
+        else:
+            a = np.asarray(v)
+            if a.dtype.kind not in "biuf" or (a.dtype.kind == "f" and
+                                              a.dtype.itemsize == 2 and
+                                              a.dtype != np.float16):
+                a = a.astype(np.float32)   # ml_dtypes bfloat16 from JAX
+            t = torch.from_numpy(np.array(a))   # a writable copy
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)

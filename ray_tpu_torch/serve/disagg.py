@@ -37,6 +37,23 @@ takes the direct queue too.
 Staging memory: each worker's pool has the engine pool's geometry
 (``num_pages`` x ``page_size``), so each worker holds as much KV memory
 as the engine itself.
+
+Under tensor parallelism (``tp=N`` or ``mesh=``, ``serve/tp.py``) the
+workers are threads of rank 0 and a worker's prefill is a tp step. NCCL
+kernels wait on their peers, so collectives that two threads issue in
+different orders on different ranks deadlock, on one communicator or on
+several: every collective goes out in ONE order. A worker's prefill is
+therefore a device call on the engine's command link (``_op_stage``),
+under the lock the decode loop's calls take; only the host-side issue is
+serialised, the card still runs it on the worker's stream. Each follower
+runs the calls in that order on its shard of the slot's staging pool
+(its own stream too) and keeps its KV-head block of the pages, keyed by
+request id, until rank 0's import names it. The import is a device call
+of the decode loop: rank 0 decides which pages to adopt and where, every
+rank writes its own block, and no page crosses ranks. Rank 0 decides
+every other outcome too and tells the followers: a worker's failure or
+a ``drop`` frees the blocks by a device call from the worker, a
+``kill_worker`` by one from the decode loop's health check.
 """
 
 from __future__ import annotations
@@ -51,7 +68,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.core import fault_injection
-from ray_tpu_torch.models import llama_paged
+from ray_tpu_torch.models import llama_decode, llama_paged
+from ray_tpu_torch.serve import tp as tp_group
 from ray_tpu_torch.serve.llm_engine import _bucket
 from ray_tpu_torch.serve.paged_engine import PagedLLMEngine, _PageAllocator
 
@@ -78,12 +96,6 @@ class DisaggPagedEngine(PagedLLMEngine):
         anyway, so diverting them would only add a handoff).
     """
 
-    # the reference builds its staging pools under the engine's mesh; the
-    # port's prefill workers are threads of one process
-    _TP_WAITS = ("DisaggPagedEngine under tensor parallelism is not ported "
-                 "yet (ROADMAP queue 1, 'Tensor-parallel serving: what "
-                 "waits')")
-
     def __init__(self, *args, prefill_workers: Optional[int] = None,
                  handoff_timeout_s: float = 5.0,
                  divert_min_tokens: Optional[int] = None, **kw):
@@ -96,8 +108,8 @@ class DisaggPagedEngine(PagedLLMEngine):
         self._divert_min_arg = divert_min_tokens
         self._prefill_q: "_q.Queue" = _q.Queue()
         self._handoff_q: "_q.Queue" = _q.Queue()
-        # guards the leases and the counters, which the request thread,
-        # the workers and the engine thread all update
+        # guards the leases, the counters and ``_staged``, which the
+        # request thread, the workers and the engine thread all update
         self._handoff_lock = threading.Lock()
         # req_id -> (submit item, lease deadline); the durability record
         self._handoff_pending: Dict[str, tuple] = {}
@@ -107,7 +119,17 @@ class DisaggPagedEngine(PagedLLMEngine):
         self._disagg_handoffs = 0
         self._disagg_recovered = 0
         self._disagg_imported_pages = 0
+        self._disagg_staging_hit_tokens = 0
+        # under tp: rank 0's prefills whose blocks the followers hold and
+        # no handoff carries yet (req_id -> slot); a follower's staging
+        # state per worker slot and the blocks it keeps (req_id -> (k, v,
+        # ready))
+        self._staged: Dict[str, int] = {}
+        self._slot_states: Dict[int, dict] = {}
+        self._stash: Dict[str, tuple] = {}
         super().__init__(*args, **kw)
+        if self._link is not None and self._link.rank != 0:
+            return   # a follower: rank 0 has shut the engine down
         self._divert_min_tokens = (self._divert_min_arg
                                    if self._divert_min_arg is not None
                                    else self._buckets[-1])
@@ -145,7 +167,8 @@ class DisaggPagedEngine(PagedLLMEngine):
 
     def _make_worker_state(self) -> dict:
         """The worker's own stream (on the card), staging pool and
-        allocator; the pool is allocated on that stream."""
+        allocator; the pool is allocated on that stream (under tp, this
+        rank's shard of it)."""
         stream = None
         if self._device.type == "cuda":
             torch.cuda.set_device(self._device)
@@ -153,7 +176,7 @@ class DisaggPagedEngine(PagedLLMEngine):
         with torch.cuda.stream(stream):
             cache = llama_paged.init_paged_cache(
                 self._cfg, self._alloc.num_pages, self._page_size,
-                self._device)
+                self._device, mesh=self._mesh)
         return {"alloc": _PageAllocator(self._alloc.num_pages,
                                         self._page_size),
                 "cache": cache, "stream": stream}
@@ -170,11 +193,11 @@ class DisaggPagedEngine(PagedLLMEngine):
                 if item is None:
                     break
                 try:
-                    self._worker_prefill(ws, item)
+                    self._worker_prefill(widx, ws, item)
                 except _WorkerKilled:
                     return  # no cleanup; _heal_workers respawns
 
-    def _worker_prefill(self, ws: dict, item: tuple):
+    def _worker_prefill(self, widx: int, ws: dict, item: tuple):
         req_id = item[0]
         try:
             toks = [int(t) for t in item[1]][: self._max_len - 1]
@@ -182,21 +205,66 @@ class DisaggPagedEngine(PagedLLMEngine):
             n_full = (len(toks) - 1) // ps
             if n_full < 1:
                 raise ValueError("prompt too short to divert")
-            head = toks[:n_full * ps]
+            head = np.asarray(toks[:n_full * ps], np.int32)
             alloc = ws["alloc"]
             # worker-side prefix cache: repeated prefixes re-export
             # without recompute (the staging pool keeps its own LRU)
-            shared, hashes, matched = alloc.match_prefix(head, len(head))
+            shared, hashes, matched = alloc.match_prefix(head.tolist(),
+                                                         len(head))
             fresh = alloc.alloc(n_full - len(shared))
             if fresh is None:
                 for pg in shared:
                     alloc.release(pg)
                 raise RuntimeError("staging pool exhausted")
+            with self._handoff_lock:
+                self._disagg_staging_hit_tokens += matched
             pages = shared + fresh
             bt_row = np.zeros((self._maxp,), np.int32)
             bt_row[:len(pages)] = pages
+            if self._link is not None:
+                with self._handoff_lock:
+                    self._staged[req_id] = widx
+            k, v, ready = self._device_call(
+                "_op_stage", req_id, widx, bt_row, head, matched,
+                local=(ws,))
+            for i, pg in enumerate(pages):
+                if i >= len(shared):
+                    alloc.register(hashes[i], pg)
+                alloc.release(pg)
+        except Exception:  # noqa: BLE001 — degraded: local prefill
+            log.warning("prefill worker failed on %s; prefilling it "
+                        "locally", req_id, exc_info=True)
+            self._unstage(req_id)
+            self._expire_now(req_id)
+            return
+        if fault_injection.enabled():
+            action = fault_injection.fire("prefill_handoff", req_id)
+            if action == "drop":
+                self._unstage(req_id)
+                return  # lease expiry recovers the request
+            if action == "kill_worker":
+                raise _WorkerKilled(req_id)
+        with self._handoff_lock:
+            self._staged.pop(req_id, None)
+        self._handoff_q.put((req_id, hashes, k, v, ready))
+
+    def _op_stage(self, req_id: str, widx: int, bt_row: np.ndarray,
+                  head: np.ndarray, ctx0: int, ws: Optional[dict] = None
+                  ) -> tuple:
+        """Device call: prefill ``head`` (whole pages) from ``ctx0`` into
+        the staging pool pages of ``bt_row`` of worker slot ``widx`` and
+        copy them out: (k, v, ready), this rank's KV-head block of the
+        pages and the event that marks the copy (None off the card). The
+        copy is taken on the slot's stream, ahead of any later write to
+        the released pages. Rank 0 passes its worker's state; a follower
+        keeps its block for the import."""
+        follower = ws is None
+        if follower:
+            ws = self._slot_states.get(widx)
+            if ws is None:
+                ws = self._slot_states[widx] = self._make_worker_state()
+        with torch.cuda.stream(ws["stream"]):
             bt_dev = self._h2d(bt_row)
-            ctx0 = matched
             while ctx0 < len(head):
                 n = min(len(head) - ctx0, self._buckets[-1])
                 C = _bucket(n, self._buckets)
@@ -205,30 +273,27 @@ class DisaggPagedEngine(PagedLLMEngine):
                 ws["cache"], _ = self._prefill_chunk(
                     ws["cache"], self._h2d(row), bt_dev, ctx0, n)
                 ctx0 += n
-            # the gather COPIES the pages out of the staging pool on this
-            # worker's stream, ahead of any later write to the released
-            # pages; the decode side waits on ``ready`` before reading
-            k, v = self.export_pages(pages, cache=ws["cache"])
+            k, v = self._take_pages(llama_decode.local_cache(ws["cache"]),
+                                    bt_row[:len(head) // self._page_size])
             ready = None
             if ws["stream"] is not None:
                 ready = torch.cuda.Event()
                 ready.record(ws["stream"])
-            for i, pg in enumerate(pages):
-                if i >= len(shared):
-                    alloc.register(hashes[i], pg)
-                alloc.release(pg)
-        except Exception:  # noqa: BLE001 — degraded: local prefill
-            log.warning("prefill worker failed on %s; prefilling it "
-                        "locally", req_id, exc_info=True)
-            self._expire_now(req_id)
-            return
-        if fault_injection.enabled():
-            action = fault_injection.fire("prefill_handoff", req_id)
-            if action == "drop":
-                return  # lease expiry recovers the request
-            if action == "kill_worker":
-                raise _WorkerKilled(req_id)
-        self._handoff_q.put((req_id, hashes, k, v, ready))
+        if follower:
+            self._stash[req_id] = (k, v, ready)
+        return k, v, ready
+
+    def _unstage(self, req_id: str) -> None:
+        """Free the followers' blocks of a prefill that will not be
+        handed off."""
+        with self._handoff_lock:
+            staged = self._staged.pop(req_id, None) is not None
+        if staged:
+            try:
+                self._device_call("_op_forget", [req_id])
+            except RuntimeError:
+                log.warning("could not free the followers' blocks of %s",
+                            req_id, exc_info=True)
 
     def _expire_now(self, req_id: str):
         """Resubmit a leased request for local prefill now (the worker
@@ -240,6 +305,12 @@ class DisaggPagedEngine(PagedLLMEngine):
         if rec is not None:
             self._in.put(rec[0])
 
+    def _op_forget(self, req_ids: List[str]):
+        """Device call: drop the blocks this rank keeps for ``req_ids``
+        (rank 0 keeps none)."""
+        for rid in req_ids:
+            self._stash.pop(rid, None)
+
     # ---- decode side: adopt handoffs, sweep leases, heal workers ---------
 
     def _drain_handoffs(self):
@@ -250,13 +321,10 @@ class DisaggPagedEngine(PagedLLMEngine):
                 return
             with self._handoff_lock:
                 lease = self._handoff_pending.pop(req_id, None)
-            if ready is not None:
-                stream = torch.cuda.current_stream(self._device)
-                stream.wait_event(ready)
-                k.record_stream(stream)
-                v.record_stream(stream)
             try:
-                n = self.import_pages(k, v, hashes)
+                n = self._adopt(req_id, hashes, k, v, ready)
+            except tp_group.TpGroupError:
+                raise
             except Exception:  # noqa: BLE001 — admission re-prefills
                 log.warning("import of %s's pages failed", req_id,
                             exc_info=True)
@@ -269,6 +337,50 @@ class DisaggPagedEngine(PagedLLMEngine):
                 # a pool-full import adopted 0 pages: admission finds no
                 # cached prefix and prefills the whole prompt locally
                 self._in.put(lease[0])
+
+    def _adopt(self, req_id: str, hashes: List[int], k, v, ready) -> int:
+        """Import a handoff's pages as cached prefixes (as
+        ``import_pages``). Rank 0 decides which pages and where; every
+        rank writes its own block, rank 0's from the handoff and a
+        follower's from its ``_op_stage``, so no page crosses ranks. The
+        call goes out even when nothing is kept: it frees the followers'
+        blocks."""
+        alloc = self._alloc
+        keep = [i for i, h in enumerate(hashes)
+                if h not in alloc.hash2page]
+        dst = alloc.alloc(len(keep)) if keep else None
+        if dst is None:
+            keep, dst = [], []
+        try:
+            self._device_call("_op_adopt", req_id, keep, dst,
+                              local=(k, v, ready))
+        except BaseException:
+            for pg in dst:
+                alloc.release(pg)
+            raise
+        for i, pg in zip(keep, dst):
+            alloc.register(hashes[i], pg)
+            alloc.release(pg)
+        return len(keep)
+
+    def _op_adopt(self, req_id: str, keep: List[int], dst: List[int],
+                  k=None, v=None, ready=None):
+        """Device call: write this rank's block of a handoff's ``keep``
+        pages into pool pages ``dst``."""
+        if k is None:
+            # the command link runs the stage before this import
+            k, v, ready = self._stash.pop(req_id)
+        if not keep:
+            return
+        if ready is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(ready)
+            k.record_stream(stream)
+            v.record_stream(stream)
+        if len(keep) != k.shape[1]:
+            sel = torch.as_tensor(keep, dtype=torch.long, device=k.device)
+            k, v = k.index_select(1, sel), v.index_select(1, sel)
+        self._write_pages(dst, k, v)
 
     def _sweep_leases(self):
         now = time.monotonic()
@@ -288,6 +400,14 @@ class DisaggPagedEngine(PagedLLMEngine):
             return
         for widx, th in enumerate(self._wthreads):
             if not th.is_alive():
+                # a killed worker's prefill is never handed off: the
+                # followers free its blocks
+                with self._handoff_lock:
+                    lost = [r for r, w in self._staged.items() if w == widx]
+                    for r in lost:
+                        del self._staged[r]
+                if lost:
+                    self._device_call("_op_forget", lost)
                 self._spawn_worker(widx)
 
     def _tick(self):
@@ -312,18 +432,29 @@ class DisaggPagedEngine(PagedLLMEngine):
                 disagg_handoffs=self._disagg_handoffs,
                 disagg_recovered=self._disagg_recovered,
                 disagg_imported_pages=self._disagg_imported_pages,
+                disagg_staging_hit_tokens=self._disagg_staging_hit_tokens,
                 disagg_pending=pending)
         st["queued"] += pending
         st["prefill_workers"] = sum(1 for t in self._wthreads
                                     if t.is_alive())
         return st
 
-    def shutdown(self):
-        super().shutdown()
+    def _stop_workers(self, wait_s: float):
         for _ in self._wthreads:
             self._prefill_q.put(None)
         for th in self._wthreads:
-            th.join(timeout=2.0)
+            th.join(timeout=wait_s)
+
+    def _close(self):
+        """Stop the workers (a prefill under tp is collective: let it
+        finish), then release the group."""
+        self._stop_workers(2.0 if self._link is None
+                           else tp_group.TP_TIMEOUT_S)
+        super()._close()
+
+    def shutdown(self):
+        super().shutdown()
+        self._stop_workers(2.0)
         self._wstates.clear()
 
 

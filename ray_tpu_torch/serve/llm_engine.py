@@ -96,8 +96,6 @@ class LLMEngine:
     # device programs (subclasses add theirs)
     _TP_SHARED = ("_cfg", "_num_slots", "_max_len", "_buckets", "_top_k",
                   "_seed")
-    # what a subclass that cannot serve under tp names instead
-    _TP_WAITS: Optional[str] = None
 
     def __init__(self, model_config: Optional[dict] = None,
                  num_slots: int = 8, max_len: int = 256,
@@ -114,11 +112,14 @@ class LLMEngine:
         self._device = llama.resolve_device(device)
         self._mesh = mesh
         self._link = None
+        # one device call at a time on the command link, from the engine
+        # thread, a prefill worker or a caller's export/import: the
+        # followers run the calls, and so issue their collectives, in
+        # the order the link carries them
+        self._call_lock = threading.Lock()
         self._fatal: Optional[BaseException] = None
         sharded = tp > 1 or mesh is not None
         if sharded:
-            if self._TP_WAITS is not None:
-                raise NotImplementedError(self._TP_WAITS)
             if mesh is None and self._device.type == "cuda" \
                     and torch.cuda.device_count() < tp:
                 raise ValueError(f"tp={tp} needs {tp} devices, found "
@@ -282,17 +283,25 @@ class LLMEngine:
                     getattr(self, op)(*args)
                 except Exception:  # noqa: BLE001 — rank 0 fails the step
                     log.exception("follower step %s failed", op)
-        self._link.close()
+        self._close()
 
-    def _device_call(self, op: str, *args):
+    def _close(self):
+        """Release the tensor-parallel group: rank 0's engine thread on
+        its way out, a follower after rank 0's shutdown command."""
+        if self._link is not None:
+            self._link.close()
+
+    def _device_call(self, op: str, *args, local: tuple = ()):
         """Run device call ``op`` (an ``_op_*`` method) here, after sending
-        it to the followers under tp. A broken group raises
-        ``TpGroupError``."""
-        if self._link is None:
-            return getattr(self, op)(*args)
+        it to the followers under tp; ``local`` are arguments for rank
+        0's call only (tensors the followers hold their shards of). A
+        broken group raises ``TpGroupError``."""
+        if self._link is None or self._link.world == 1:
+            return getattr(self, op)(*args, *local)   # no one follows
         try:
-            self._link.send(op, args)
-            return getattr(self, op)(*args)
+            with self._call_lock:
+                self._link.send(op, args)
+                return getattr(self, op)(*args, *local)
         except tp_group.TpGroupError:
             raise
         except RuntimeError as e:
@@ -588,8 +597,7 @@ class LLMEngine:
         try:
             self._loop()
         finally:
-            if self._link is not None:
-                self._link.close()
+            self._close()
 
     def _loop(self):
         with torch.no_grad():

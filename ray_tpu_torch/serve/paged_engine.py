@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch.models import llama_paged
+from ray_tpu_torch.models import llama_decode, llama_paged
 from ray_tpu_torch.serve import tp as tp_group
 from ray_tpu_torch.serve.llm_engine import LLMEngine, _bucket, _HostCopy
 
@@ -409,16 +409,51 @@ class PagedLLMEngine(LLMEngine):
 
     # ---- disaggregation surface ----------------------------------------
 
+    def _pool_split(self) -> bool:
+        """Whether the ranks hold KV-head blocks of the pool (tp divides
+        the KV heads), not whole copies of it."""
+        return any(pl.is_shard() for pl in
+                   getattr(self._cache["k"], "placements", ()))
+
     def export_pages(self, pages: List[int], cache: Optional[dict] = None
                      ) -> tuple:
         """The K/V contents of ``pages`` (pool indices) as a pair of
-        [L, n, KVH, page, hd] tensors. ``cache`` defaults to this
-        engine's pool. The caller holds refs on the pages meanwhile."""
-        self._single_card("export_pages")
-        cache = self._cache if cache is None else cache
+        [L, n, KVH, page, hd] tensors on this engine's device. ``cache``
+        defaults to this engine's pool; another is read on this rank
+        alone (a prefill worker's staging pool). Under tp, rank 0 sends
+        the export as a device call, every rank takes its KV-head block
+        and rank 0 gathers the blocks; where the pool is replicated,
+        rank 0's copy is the answer. The caller holds refs on the pages
+        meanwhile."""
+        if cache is None and self._pool_split():
+            return self._device_call("_op_export_pages", list(pages))
+        pool = llama_decode.local_cache(self._cache if cache is None
+                                        else cache)
+        return self._take_pages(pool, pages)
+
+    def _take_pages(self, pool: dict, pages: List[int]) -> tuple:
         idx = self._h2d(np.asarray(pages, np.int64))
-        return (cache["k"].index_select(1, idx),
-                cache["v"].index_select(1, idx))
+        return pool["k"].index_select(1, idx), pool["v"].index_select(1, idx)
+
+    def _op_export_pages(self, pages: List[int]):
+        """Device call: this rank's KV-head block of ``pages``, gathered
+        whole to rank 0 (None elsewhere)."""
+        k, v = self._take_pages(llama_decode.local_cache(self._cache), pages)
+        return self._gather_heads(k), self._gather_heads(v)
+
+    def _gather_heads(self, block: torch.Tensor) -> Optional[torch.Tensor]:
+        rank0 = self._link.rank == 0
+        blocks = ([torch.empty_like(block) for _ in range(self._link.world)]
+                  if rank0 else None)
+        torch.distributed.gather(block.contiguous(), blocks, dst=0)
+        if not rank0:
+            return None
+        sh = llama_paged.paged_cache_shardings(self._cfg, self._mesh)["k"]
+        whole = block.new_empty(block.shape[:2] + (self._cfg.num_kv_heads,)
+                                + block.shape[3:])
+        for r, b in enumerate(blocks):
+            tp_group.rank_block(whole, sh, r).copy_(b)
+        return whole
 
     def import_pages(self, k, v, hashes: List[int]) -> int:
         """Adopt exported pages into this pool as CACHED prefixes: pages
@@ -427,8 +462,9 @@ class PagedLLMEngine(LLMEngine):
         retains them through ``match_prefix``. Hashes already resident
         are skipped. Returns the number of pages adopted (0, with
         nothing allocated, when the pool cannot cover or all are
-        cached). Engine-thread only, like every cache update."""
-        self._single_card("import_pages")
+        cached). Under tp rank 0 takes whole tensors, decides alone, and
+        sends each rank its KV-head block. Engine-thread only, or on an
+        idle engine, like every allocator update."""
         alloc = self._alloc
         keep = [i for i, h in enumerate(hashes)
                 if h not in alloc.hash2page]
@@ -437,24 +473,46 @@ class PagedLLMEngine(LLMEngine):
         dst = alloc.alloc(len(keep))
         if dst is None:
             return 0
-        dev = self._cache["k"].device
         if len(keep) != len(hashes):
             sel = torch.as_tensor(keep, dtype=torch.long, device=k.device)
             k, v = k.index_select(1, sel), v.index_select(1, sel)
-        idx = self._h2d(np.asarray(dst, np.int64))
-        self._cache["k"].index_copy_(1, idx, k.to(dev))
-        self._cache["v"].index_copy_(1, idx, v.to(dev))
+        self._device_call("_op_import_pages", dst, local=(k, v))
         for i, pg in zip(keep, dst):
             alloc.register(hashes[i], pg)
             alloc.release(pg)
         return len(keep)
 
-    def _single_card(self, what: str) -> None:
-        if self._mesh is not None:
-            raise NotImplementedError(
-                f"{what} under tensor parallelism is not ported yet (ROADMAP "
-                "queue 1, 'Tensor-parallel serving: what waits'): each "
-                "rank holds its KV-head shard of the pool")
+    def _op_import_pages(self, dst: List[int], k=None, v=None):
+        """Device call: write rank 0's whole pages ``k``, ``v`` into pool
+        pages ``dst``. Over several ranks rank 0 scatters each its
+        KV-head block, or broadcasts the pages to a replicated pool."""
+        if self._link is not None and self._link.world > 1:
+            k, v = self._spread_heads(k, len(dst)), \
+                self._spread_heads(v, len(dst))
+        self._write_pages(dst, k, v)
+
+    def _spread_heads(self, whole: Optional[torch.Tensor], n: int
+                      ) -> torch.Tensor:
+        pool = llama_decode.local_cache(self._cache)["k"]
+        block = pool.new_empty((pool.shape[0], n) + tuple(pool.shape[2:]))
+        if not self._pool_split():
+            if whole is not None:
+                block.copy_(whole)
+            torch.distributed.broadcast(block, src=0)
+            return block
+        sh = llama_paged.paged_cache_shardings(self._cfg, self._mesh)["k"]
+        blocks = (None if whole is None else
+                  [tp_group.rank_block(whole.to(block), sh, r)
+                   .contiguous() for r in range(self._link.world)])
+        torch.distributed.scatter(block, blocks, src=0)
+        return block
+
+    def _write_pages(self, dst: List[int], k: torch.Tensor,
+                     v: torch.Tensor) -> None:
+        pool = llama_decode.local_cache(self._cache)
+        idx = self._h2d(np.asarray(dst, np.int64))
+        pool["k"].index_copy_(1, idx, k.to(pool["k"]))
+        pool["v"].index_copy_(1, idx, v.to(pool["v"]))
 
     def residency_digest(self, max_entries: int = 4096) -> dict:
         """Bounded snapshot of the cached prefix fingerprints, for

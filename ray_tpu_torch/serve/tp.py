@@ -25,10 +25,14 @@ Two ways in:
   runs the follower loop inside its constructor until rank 0 shuts down.
 
 Rank 0 scatters its weights (``place_params``): each rank receives its
-own shard, never a whole copy. A follower that dies makes rank 0's next
-device call raise ``TpGroupError`` (a liveness check before every
-command, and the data group's collectives, which fail on a closed peer
-or at ``TP_TIMEOUT_S``), and the engine fails its requests and stops.
+own shard, never a whole copy. Every device call goes out on the one
+link, a disaggregated prefill worker's too: NCCL kernels wait on their
+peers, so collectives issued in different orders on different ranks
+deadlock, whichever communicators carry them. A follower that dies
+makes rank 0's next device call raise ``TpGroupError`` (a liveness
+check before every command, and the data group's collectives, which
+fail on a closed peer or at ``TP_TIMEOUT_S``), and the engine fails its
+requests and stops.
 """
 
 from __future__ import annotations
@@ -208,7 +212,7 @@ def _set(tree: Dict, path: str, value) -> None:
     tree[last] = value
 
 
-def _shard(full: torch.Tensor, sharding, rank: int) -> torch.Tensor:
+def rank_block(full: torch.Tensor, sharding, rank: int) -> torch.Tensor:
     """``rank``'s block of ``full`` under ``sharding`` (a view): the
     Shard dims narrowed by the rank's mesh coordinates, outer axes
     first, as DTensor and the reference chunk them."""
@@ -248,11 +252,11 @@ def place_params(params: Optional[Dict], shardings: Dict, link: Link,
             full = flat.pop(path).to(device) if rank0 else None
             split = any(pl.is_shard() for pl in sh.placements)
             if split:
-                blocks = ([_shard(full, sh, r).contiguous()
+                blocks = ([rank_block(full, sh, r).contiguous()
                            for r in range(link.world)] if rank0 else None)
                 local_shape = (blocks[0].shape if rank0 else
-                               _shard(torch.empty(shape, device="meta"),
-                                      sh, link.rank).shape)
+                               rank_block(torch.empty(shape, device="meta"),
+                                          sh, link.rank).shape)
                 local = torch.empty(local_shape, dtype=dtype, device=device)
                 dist.scatter(local, blocks, src=0)
             else:

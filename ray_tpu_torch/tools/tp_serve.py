@@ -5,14 +5,19 @@
 Serves the requests of ``chip_smoke.py``'s phase 3 (8 greedy prompts of
 100 to 500 tokens, the last sharing the second's first 128 tokens, 32
 new tokens each; 8 slots, max_len 1024, buckets 128/512, chunks of 8,
-pages of 64) through ``LLMEngine`` and ``PagedLLMEngine`` at tp 1 and at
-tp N (N - 1 follower processes on the other cards, NCCL between them),
-on the same random weights from seed 0:
+pages of 64) through ``LLMEngine``, ``PagedLLMEngine`` and
+``DisaggPagedEngine`` (2 prefill workers, divert floor 128, as phase
+9(b)) at tp 1 and at tp N (N - 1 follower processes on the other cards,
+NCCL between them), on the same random weights from seed 0:
 
-1. Llama-3-8B width with 2 layers in fp32: the tp-N transcripts of both
-   engines must equal the tp-1 dense engine's (the per-layer ``psum``
-   sums in another order, which fp32 greedy tokens do not feel here),
-   and every engine shuts down within ``SHUTDOWN_S``.
+1. Llama-3-8B width with 2 layers in fp32: the tp-N transcripts of the
+   three engines must equal the tp-1 dense engine's (the per-layer
+   ``psum`` sums in another order, which fp32 greedy tokens do not feel
+   here), the disaggregated engine must hand off every diverted prompt,
+   and every engine shuts down within ``SHUTDOWN_S``. Then the pages of
+   the second prompt, exported from a tp-N paged engine, are imported
+   into a tp-1 one: the last prompt must hit them (128 tokens) and
+   decode the exporter's tokens.
 2. Llama-3-8B bf16, 32 layers: wall time, TTFT and ITL p50/p99 of each
    engine at tp 1 and tp N, how many transcripts agree (printed, not
    required in bf16), rank 0's kernel launches (flash forward and paged
@@ -41,6 +46,9 @@ SERVE = dict(num_slots=8, max_len=1024, prefill_buckets=[128, 512],
 LENS = (100, 157, 214, 271, 328, 385, 442, 500)
 # seconds an engine may take to stop its followers
 SHUTDOWN_S = 20.0
+# the disaggregated engine's settings in chip_smoke.py's phase 9(b)
+DISAGG = dict(page_size=64, prefill_workers=2, divert_min_tokens=128,
+              handoff_timeout_s=60.0)
 
 
 def requests(vocab_size: int):
@@ -98,6 +106,7 @@ def serve(cls, cfg, params, dev, tp: int, **kw) -> dict:
         out = _drain(eng, first, 600)
         out.update(_drain(eng, last, 300))
         wall = time.perf_counter() - t0
+        st = eng.stats()
     finally:
         t1 = time.perf_counter()
         eng.shutdown()
@@ -108,14 +117,53 @@ def serve(cls, cfg, params, dev, tp: int, **kw) -> dict:
             "wall_s": wall, "shutdown_s": stop, **_latency(out),
             "flash_launches": flash_forward.launches,
             "paged_launches": paged_attention.launches,
-            "rank0_peak_gib": peak}
+            "rank0_peak_gib": peak,
+            "handed_off": st.get("disagg_handoffs", 0) == st.get(
+                "disagg_diverted", 0)}
+
+
+def export_import(cfg, params, dev, tp: int) -> dict:
+    """The second prompt's 2 cached pages exported from a tp-``tp`` paged
+    engine (gathered to rank 0) and imported into a tp-1 one; the last
+    prompt, which shares them, then decodes on each."""
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    first, last = requests(cfg.vocab_size)
+    mc = {"preset": "llama3_8b", "num_layers": cfg.num_layers,
+          "dtype": cfg.dtype, "param_dtype": cfg.param_dtype}
+    kw = dict(model_config=mc, params=params, device=dev, page_size=64,
+              **SERVE)
+    src = PagedLLMEngine(tp=tp, **kw)
+    try:
+        _drain(src, first[1:2], 300)
+        prompt = first[1][1]
+        pages, hashes, _ = src._alloc.match_prefix(prompt, len(prompt))
+        k, v = src.export_pages(pages)
+        for pg in pages:
+            src._alloc.release(pg)
+        want = _drain(src, last, 300)["q7"]["tokens"]
+    finally:
+        src.shutdown()
+    dst = PagedLLMEngine(tp=1, **kw)
+    try:
+        imported = dst.import_pages(k, v, hashes)
+        got = _drain(dst, last, 300)["q7"]["tokens"]
+        hit = dst._prefix_hit_tokens
+    finally:
+        dst.shutdown()
+    return {"pages": len(pages), "imported": imported, "hit_tokens": hit,
+            "shape": tuple(k.shape), "equal": got == want}
 
 
 def run(dev: torch.device, tp: int) -> dict:
     from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.disagg import DisaggPagedEngine
     from ray_tpu_torch.serve.llm_engine import LLMEngine
     from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
 
+    engines = (("dense", LLMEngine, {}),
+               ("paged", PagedLLMEngine, {"page_size": 64}),
+               ("disagg", DisaggPagedEngine, DISAGG))
     result: dict = {"tp": tp}
     ok = True
     # 1: fp32, 2 layers at full width: tp N gives tp 1's tokens
@@ -123,22 +171,30 @@ def run(dev: torch.device, tp: int) -> dict:
                                       param_dtype=torch.float32)
     params = llama.init_params(cfg, seed=0, device=dev)
     ref = serve(LLMEngine, cfg, params, dev, 1)["tokens"]
-    for name, cls, kw in (("dense", LLMEngine, {}),
-                          ("paged", PagedLLMEngine, {"page_size": 64})):
+    for name, cls, kw in engines:
         res = serve(cls, cfg, params, dev, tp, **kw)
         same = sum(res["tokens"][r] == ref[r] for r in ref)
-        ok &= same == len(ref) and res["shutdown_s"] < SHUTDOWN_S
+        ok &= (same == len(ref) and res["shutdown_s"] < SHUTDOWN_S
+               and res["handed_off"])
         result[f"fp32_{name}_tp{tp}_equal"] = same
         print(f"fp32 2 layers, {name} tp {tp}: {same}/{len(ref)} "
               f"transcripts equal the tp-1 dense engine's; shutdown "
-              f"{res['shutdown_s']:.2f} s", flush=True)
+              f"{res['shutdown_s']:.2f} s; every diverted prompt handed "
+              f"off: {res['handed_off']}", flush=True)
+    moved = export_import(cfg, params, dev, tp)
+    ok &= (moved["imported"] == moved["pages"] == 2
+           and moved["hit_tokens"] == 128 and moved["equal"])
+    result[f"fp32_export_tp{tp}_import_tp1"] = moved
+    print(f"fp32 2 layers, export at tp {tp}, import at tp 1: "
+          f"{moved['imported']} of {moved['pages']} pages ({moved['shape']} "
+          f"each of k, v), prefix hit {moved['hit_tokens']} tokens, the "
+          f"exporter's tokens: {moved['equal']}", flush=True)
     del params
     # 2: bf16, 32 layers: latency and agreement
     cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
                                       param_dtype=torch.bfloat16)
     params = llama.init_params(cfg, seed=0, device=dev)
-    for name, cls, kw in (("dense", LLMEngine, {}),
-                          ("paged", PagedLLMEngine, {"page_size": 64})):
+    for name, cls, kw in engines:
         runs = {n: serve(cls, cfg, params, dev, n, **kw) for n in (1, tp)}
         same = sum(runs[tp]["tokens"][r] == runs[1]["tokens"][r]
                    for r in runs[1]["tokens"])

@@ -10,8 +10,9 @@ preset with 4 KV heads (the cache split over tp 4) and with its own 2
 (tp does not divide them: the cache replicated, q/k/v gathered). Then
 the paged engine at tp 4 against the dense engine (the reference's dry
 run), q/k/v biases, a sampled request, cancel and a duplicate request id
-at tp 2, the refusals, a killed follower, and ``mesh=`` over ranks the
-caller started (``tests/_torch_ranks.py``).
+at tp 2, the refusals, the disaggregated engine at tp 2, a killed
+follower, and ``mesh=`` over ranks the caller started
+(``tests/_torch_ranks.py``), with a page export there.
 
 Every engine is shut down in ``finally``, every wait has a deadline.
 """
@@ -200,15 +201,33 @@ def test_refusals_match_reference():
 
 
 def test_disaggregated_engine_refuses_tp():
-    """The reference builds its staging pools under the engine's mesh; the
-    port's waits (ROADMAP queue 1 item 2) and says so before any rank
-    starts."""
+    """The disaggregated engine under tp, which it refused until its
+    workers got lanes of their own: ``DisaggPagedEngine(tp=2)`` diverts
+    the long prompts to its prefill worker and gives the single paged
+    engine's tokens; ``mesh=`` that is not a mesh of the caller's group
+    is still refused before any rank starts."""
     from ray_tpu_torch.serve.disagg import DisaggPagedEngine
 
-    for kw in ({"tp": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="Tensor-parallel "
-                           "serving: what waits"):
-            DisaggPagedEngine(device="cpu", page_size=8, **kw, **KW)
+    reqs = [(f"d{i}", p, {}) for i, p in
+            enumerate([list(range(1, 21)), list(range(3, 14)), PROMPTS[0]])]
+    tree = _params()
+    single = _tokens(PagedLLMEngine(page_size=8, device="cpu",
+                                    params=params_from_numpy(tree, "cpu"),
+                                    **KW), reqs)
+    eng = DisaggPagedEngine(tp=2, page_size=8, device="cpu",
+                            prefill_workers=1, divert_min_tokens=9,
+                            handoff_timeout_s=60.0,
+                            params=params_from_numpy(tree, "cpu"), **KW)
+    try:
+        out = _drain(eng, reqs)
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    assert {k: v["tokens"] for k, v in out.items()} == single
+    assert st["disagg_diverted"] == st["disagg_handoffs"] == 2
+    assert st["disagg_recovered"] == 0
+    with pytest.raises((ValueError, RuntimeError)):
+        DisaggPagedEngine(device="cpu", page_size=8, mesh=object(), **KW)
 
 
 def test_killed_follower_fails_requests_and_shutdown_reaps():
@@ -248,6 +267,22 @@ def test_shutdown_stops_every_follower():
 # ------------------------------------------------ mesh= over caller's ranks
 
 
+# a prompt of two full pages of 8, which the paged engines publish to
+# their prefix caches
+LONG = list(range(1, 21))
+
+
+def _export_long(eng):
+    """Serve ``LONG``, then export its two cached pages (numpy)."""
+    _drain(eng, [("long", LONG, {})])
+    alloc = eng._alloc
+    pages, _, _ = alloc.match_prefix(LONG, 16)
+    k, v = eng.export_pages(pages)
+    for pg in pages:
+        alloc.release(pg)
+    return k.numpy(), v.numpy()
+
+
 def _mesh_ranks(rank, world, tree):
     """Every rank builds the engine on the caller's group; rank 0 serves
     and returns the transcripts (the others return after shutdown). Also:
@@ -270,10 +305,7 @@ def _mesh_ranks(rank, world, tree):
                   **kw, **KW)
         if rank == 0:
             if cls is PagedLLMEngine:
-                try:
-                    eng.export_pages([0])
-                except NotImplementedError as e:
-                    out["export_pages"] = str(e)
+                out["export_pages"] = _export_long(eng)
             out[cls.__name__] = _tokens(eng)
         else:
             with pytest.raises(RuntimeError, match="rank 0"):
@@ -305,7 +337,18 @@ def test_mesh_engines_match_reference(reference, tmp_path, world):
     want = reference["kv4"]["tp4"]
     assert res[0]["LLMEngine"] == want
     assert res[0]["PagedLLMEngine"] == want
-    # page transfers under tp wait (ROADMAP queue 1 item 2)
-    assert "what waits" in res[0]["export_pages"]
+    # export_pages under mesh= (rank 0 gathers the KV-head blocks at
+    # world 2) equals the mesh-free engine's export of the same pages
+    eng = PagedLLMEngine(model_config=PRESETS["kv4"], page_size=8,
+                         params=params_from_numpy(tree, "cpu"),
+                         device="cpu", **KW)
+    try:
+        want_k, want_v = _export_long(eng)
+    finally:
+        eng.shutdown()
+    got_k, got_v = res[0]["export_pages"]
+    assert got_k.shape == (2, 2, 4, 8, 16)
+    np.testing.assert_allclose(got_k, want_k, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got_v, want_v, atol=2e-5, rtol=0)
     for r in res:
         assert "mesh=" in r["tp_in_group"]
