@@ -9,7 +9,9 @@ Phases, each printing what it finds; any failure exits non-zero:
    ray_tpu_torch/csrc (timed), with ptxas's registers and spills; the
    six wgmma kernels (the bf16 flash forward, dQ and dK/dV at d 64/128
    and at d 256) must contain HGMMA instructions in the built library's
-   SASS (cuobjdump), and the three d-256 ones no spill.
+   SASS (cuobjdump), and the three d-256 ones no spill; the ten 3xTF32
+   instances (the fp32 forward and dK/dV at d 16-256) HMMA (mma.sync)
+   instructions, and those at d <= 128 no spill.
 1. each kernel against its plain PyTorch version on the card: the flash
    forward at the serving shapes, s 2048 and the training shape (b 4,
    s 2048, bf16), the flash backward (dQ and dK/dV) at b 1/4, s
@@ -18,26 +20,29 @@ Phases, each printing what it finds; any failure exits non-zero:
    paged kernel at the decode shape and on a 64-page table whose
    contexts land on the split boundaries of its split-K grid, with ctx
    0 exact, out-of-pool ids below ctx read as clamped, and two calls on
-   the same inputs equal bit for bit. fp32 (the scalar kernels) at atol
-   1e-4 (the backward also rtol 1e-4: dK sums up to sk*G products an
-   element), bf16 (the wgmma kernels) at atol/rtol 2e-2 against the
-   plain version in fp32 on the same bf16 inputs; every bf16 forward,
-   dQ and dK/dV launch must take the wgmma route. Times of each
-   kernel, its plain version and one PyTorch call computing the same
-   function (scaled_dot_product_attention, its backward for the
-   dQ/dK/dV pair), with the least time the card could take. The backward
-   is timed at the training shape, the paged wrapper (its split and
-   merge launches) at the decode shape; the fp32 scalar kernels at d 128
-   at the same shapes.
+   the same inputs equal bit for bit. fp32 (the 3xTF32 forward and
+   dK/dV, the scalar dQ) at atol 1e-4 (the backward also rtol 1e-4: dK
+   sums up to sk*G products an element), bf16 (the wgmma kernels) at
+   atol/rtol 2e-2 against the plain version in fp32 on the same bf16
+   inputs; every bf16 forward, dQ and dK/dV launch must take the wgmma
+   route, every fp32 forward and dK/dV the 3xTF32 one, every fp32 dQ the
+   scalar one. Times of each kernel, its plain version and one PyTorch
+   call computing the same function (scaled_dot_product_attention, its
+   backward for the dQ/dK/dV pair), with the least time the card could
+   take (for fp32 work, the 3xTF32 floor at 495 / 3 TFLOP/s, the 67
+   TFLOP/s SIMT bound printed beside it). The backward is timed at the
+   training shape, the paged wrapper (its split and merge launches) at
+   the decode shape; the fp32 kernels at d 128 at the same shapes.
    Phase 1 also holds the paged kernel at the published shapes that
    Qwen2 and Gemma give it (G 7 under the row maximum 8 at hd 128 and
    64, G 1 and G 8 at hd 256; fp32 and bf16; the old contexts and a 64-page
    table; timed at the decode shape), the flash forward, dQ and dK/dV at
    head dim 256 (16/16 heads; every bf16 launch on the wgmma route, every
-   fp32 launch on the scalar route; timed at b 8 x s 512 and, the
-   backward, b 2 x s 2048), and the head dims 16 and 32 of
-   the tiny presets (the scalar flash kernels, fp32 and bf16, and the
-   paged kernel under every row maximum).
+   fp32 forward and dK/dV on the 3xTF32 route; timed at b 8 x s 512
+   and, the backward, b 2 x s 2048), the head dims 16 and 32 of the tiny
+   presets (the flash kernels, fp32 and bf16, and the paged kernel under
+   every row maximum), and the 3xTF32 kernels at d 16, 32, 64, 128 and
+   256 by GQA groups 1, 4, 7 and 8, causal and not.
 2. fp32, 2 layers, at full Llama-3-8B, Qwen2-7B and Gemma-7B width: the
    dense engine (flash prefill) and the paged engine (paged decode) give
    identical greedy transcripts, which agree with a cache-free forward
@@ -48,7 +53,7 @@ Phases, each printing what it finds; any failure exits non-zero:
    their kernels ran, every flash launch on the wgmma route; TTFT and
    ITL medians.
 4. fp32, 2 layers, batch 2 x seq 256, at full Llama-3-8B width and then
-   full Gemma-7B width (head dim 256, the scalar backward): the loss and
+   full Gemma-7B width (head dim 256): the loss and
    every gradient leaf through the flash kernels match the reference
    attention's (max |dg| <= 1e-4 max |g| per leaf), and full remat
    matches no remat.
@@ -151,10 +156,13 @@ Phases, each printing what it finds; any failure exits non-zero:
    and imported into another, where q7 hits them (128 tokens) and
    decodes the exporter's q7 tokens.
 
+Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward and dK/dV
+launch took the 3xTF32 kernels and every dQ the scalar one.
+
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
 3 and 6, of the backward kernels from phases 5 and 7's Gemma run, of
-the fp32 scalar kernels from phase 2's Llama dense engine and phase 4's
+the fp32 kernels from phase 2's Llama dense engine and phase 4's
 Llama and Gemma runs; the d-128 wgmma rows add phase 11's sharded
 runs and phase 13's training, losses and predictor, the d-128 forward
 and G-4 paged rows phase 12's engines, the G-4 paged row phase 13's);
@@ -169,6 +177,7 @@ import gc
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -180,6 +189,9 @@ from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32 work in 3xTF32 on the tensor cores: three TF32 products (495
+# TFLOP/s dense) for each fp32 one; the floor of the 3xTF32 kernels
+TF32X3_FLOPS = 495e12 / 3
 
 # config.json values of the published models phases 4 and 6 build
 # (Qwen/Qwen2-7B, google/gemma-7b), written out so that the configs build
@@ -286,10 +298,21 @@ def kernel_ms(fn, names, iters: int = 10) -> dict:
     return {n: us[n] / 1e3 / iters for n in names}
 
 
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+def bound_ms(nbytes: float, flops: float, dtype, rate=None) -> tuple:
+    """The larger of the bytes' time at the HBM rate and the operations'
+    at ``rate`` (default: the dtype's peak), with which one it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (rate or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fp32_bounds(nbytes: float, flops: float) -> tuple:
+    """(SIMT bound, 3xTF32 floor, bound_by) of fp32 work: at 67 TFLOP/s of
+    fp32 FMAs, and at 495 / 3 on the tensor cores; the floor is the row's
+    ``bound_ms``."""
+    simt, _ = bound_ms(nbytes, flops, torch.float32)
+    floor, by = bound_ms(nbytes, flops, torch.float32, TF32X3_FLOPS)
+    return simt, floor, by
 
 
 def close(got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -312,6 +335,17 @@ WGMMA_KERNELS = {"flash_fwd_sm90_kernel": 2, "flash_bwd_dq_sm90_kernel": 2,
 NO_SPILL_KERNELS = ("flash_fwd_sm90_d256_kernel",
                     "flash_bwd_dq_sm90_d256_kernel",
                     "flash_bwd_dkv_sm90_d256_kernel")
+# the 3xTF32 kernels and their instances (d 16, 32, 64, 128, 256): their
+# SASS must hold HMMA (mma.sync) instructions, and the instances at d <=
+# 128 must build without a spill
+TF32X3_KERNELS = {"flash_fwd_tf32x3_kernel": 5,
+                  "flash_bwd_dkv_tf32x3_kernel": 5}
+
+
+def head_dim_of(name: str) -> int:
+    """The head-dim template argument of a mangled kernel name."""
+    m = re.search(r"ILi(\d+)E", name)
+    return int(m.group(1)) if m else 0
 
 
 def ptxas_usage(log: str) -> dict:
@@ -332,21 +366,24 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
-def sass_hgmma_counts(lib_path) -> dict:
-    """{mangled kernel name: HGMMA instructions} for every kernel in the
-    built library, from ``cuobjdump -sass``."""
+def sass_counts(lib_path, opcodes) -> dict:
+    """{opcode: {mangled kernel name: instructions}} for every kernel in
+    the built library, from ``cuobjdump -sass``."""
     from ray_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    counts, name = {}, None
+    counts, name = {op: {} for op in opcodes}, None
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name and "HGMMA" in line:
-            counts[name] += 1
+            for op in opcodes:
+                counts[op][name] = 0
+        elif name:
+            for op in opcodes:
+                if re.search(rf"\b{op}\.", line):
+                    counts[op][name] += 1
     return counts
 
 
@@ -374,14 +411,20 @@ def build_phase() -> None:
                                           for u in found.values()),
                   f"{kernel}: want one instance without spills, ptxas "
                   f"reported {found}")
-    hgmma = sass_hgmma_counts(_build.library_path())
-    for kernel, want in WGMMA_KERNELS.items():
-        found = {n: c for n, c in hgmma.items() if kernel in n}
-        check(len(found) == want, f"{kernel}: want {want} instance(s) in "
-              f"the SASS, found {sorted(found)}")
-        for n, c in sorted(found.items()):
-            print(f"  sass: {n}: {c} HGMMA instructions", flush=True)
-            check(c > 0, f"{n} has no HGMMA instruction")
+        for kernel in TF32X3_KERNELS:
+            spilled = {n: u for n, u in usage.items() if kernel in n
+                       and head_dim_of(n) <= 128 and (u[1] or u[2])}
+            check(not spilled, f"{kernel}: instances at d <= 128 spill: "
+                  f"{spilled}")
+    sass = sass_counts(_build.library_path(), ("HGMMA", "HMMA"))
+    for op, kernels in (("HGMMA", WGMMA_KERNELS), ("HMMA", TF32X3_KERNELS)):
+        for kernel, want in kernels.items():
+            found = {n: c for n, c in sass[op].items() if kernel in n}
+            check(len(found) == want, f"{kernel}: want {want} instance(s) "
+                  f"in the SASS, found {sorted(found)}")
+            for n, c in sorted(found.items()):
+                print(f"  sass: {n}: {c} {op} instructions", flush=True)
+                check(c > 0, f"{n} has no {op} instruction")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -402,7 +445,7 @@ def flash_phase(dev) -> list:
 
     H, KVH = 32, 8
     g = torch.Generator(device=dev).manual_seed(1)
-    worst = worst_fp32 = 0.0   # bf16 (the wgmma kernel), fp32 (scalar)
+    worst = worst_fp32 = 0.0   # bf16 (the wgmma kernel), fp32 (3xTF32)
     dts = (torch.float32, torch.bfloat16)
     cases = [(b, s, s, 128, c, dt) for dt in dts
              for b in (1, 8) for s in (128, 512) for c in (True, False)]
@@ -432,13 +475,15 @@ def flash_phase(dev) -> list:
             worst_fp32 = max(worst_fp32, err_o, err_l)
         else:
             worst = max(worst, err_o, err_l)
-    sm90 = counters()["fwd_sm90"] - before["fwd_sm90"]
-    check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 flash forward launches "
-          f"took the wgmma kernel")
+    n = {key: c - before[key] for key, c in counters().items()}
+    n_fp32 = len(cases) - n_bf16
+    check(n["fwd_sm90"] == n_bf16 and n["fwd_tf32x3"] == n_fp32,
+          f"flash forward routes: want {n_bf16} bf16 launches on the wgmma "
+          f"kernel and {n_fp32} fp32 on the 3xTF32 one, got {n}")
 
     # timing at the dense engine's largest prefill: 8 prompts in the
     # 512 bucket, causal; bf16 (the wgmma kernel, the row below) and fp32
-    # (the scalar kernel of the fp32 engines, phase 2)
+    # (the 3xTF32 kernel of the fp32 engines, phase 2)
     D = 128
     b, s = 8, 512
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -459,15 +504,21 @@ def flash_phase(dev) -> list:
         size = q.element_size()
         nbytes = ((2 * b * s * H * D + 2 * b * s * KVH * D) * size
                   + b * H * s * 4)
-        bnd, by = bound_ms(nbytes, flops, dt)
+        if dt == torch.float32:
+            simt, bnd, by = fp32_bounds(nbytes, flops)
+            what = (f"SIMT bound {simt:.4f} ms, 3xTF32 floor {bnd:.4f} ms "
+                    f"({by})")
+        else:
+            bnd, by = bound_ms(nbytes, flops, dt)
+            what = f"bound {bnd:.4f} ms ({by})"
         print(f"  flash timing b={b} s={s} causal {str(dt)[6:]}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-              f"bound {bnd:.4f} ms ({by})", flush=True)
+              f"{what}", flush=True)
         timed[dt] = (ms, plain_ms, lib_ms, bnd, by)
     fp32_row = dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_by"), timed[torch.float32]))
-    fp32_row.update(name="flash_attention_fwd_scalar_d128", route="cuda",
-                    source="ray_tpu_torch/csrc/flash_fwd.cu",
+    fp32_row.update(name="flash_attention_fwd_tf32x3_d128", route="cuda",
+                    source="ray_tpu_torch/csrc/flash_fwd_tf32x3.cu",
                     replaces="ray_tpu/ops/attention.py:78",
                     max_abs_err=worst_fp32)
     ms, plain_ms, lib_ms, bnd, by = timed[torch.bfloat16]
@@ -554,13 +605,17 @@ def flash_bwd_phase(dev) -> list:
         worst["dq", dt] = max(worst["dq", dt], res[0][1])
         worst["dkv", dt] = max(worst["dkv", dt], res[1][1], res[2][1])
         del q, k, v, o, lse, do, got, want
-    for key, what in (("dq_sm90", "dQ"), ("dkv_sm90", "dK/dV")):
-        sm90 = counters()[key] - before[key]
-        check(sm90 == n_bf16, f"{sm90} of {n_bf16} bf16 {what} launches "
-              f"took the wgmma kernel")
+    n = {key: c - before[key] for key, c in counters().items()}
+    n_fp32 = len(cases) - n_bf16
+    check(n["dq_sm90"] == n["dkv_sm90"] == n_bf16
+          and n["dkv_tf32x3"] == n["dq"] - n["dq_sm90"] == n_fp32,
+          f"flash backward routes: want {n_bf16} bf16 dQ and dK/dV launches "
+          f"on the wgmma kernels, {n_fp32} fp32 dK/dV on the 3xTF32 one and "
+          f"{n_fp32} fp32 dQ on the scalar one, got {n}")
 
     # timing at the training shape: b 4, s 2048, causal; bf16 (the wgmma
-    # kernels) and fp32 (the scalar kernels of the fp32 gradients, phase 4)
+    # kernels) and fp32 (the fp32 gradients' kernels, phase 4: the scalar
+    # dQ, the 3xTF32 dK/dV)
     b, s, D = 4, 2048, 128
     G = H // KVH
     pairs = s * (s + 1) // 2                        # visible (q, k) pairs
@@ -568,8 +623,8 @@ def flash_bwd_phase(dev) -> list:
     for dt in (torch.bfloat16, torch.float32):
         fp32 = dt == torch.float32
         q, k, v, o, lse, do = inputs(b, s, s, D, True, dt)
-        keys = (("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if fp32 else
-                ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"))
+        keys = (("flash_bwd_dq_kernel", "flash_bwd_dkv_tf32x3_kernel") if fp32
+                else ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"))
         ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
                        keys)
         plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
@@ -588,20 +643,26 @@ def flash_bwd_phase(dev) -> list:
         size = q.element_size()
         ins = ((2 * b * s * H * D + 2 * b * s * KVH * D) * size
                + 2 * b * H * s * 4)
-        suffix = "_scalar_d128" if fp32 else ""
-        srcs = (("flash_bwd.cu",) * 2 if fp32 else
-                ("flash_bwd_dq_sm90.cu", "flash_bwd_dkv_sm90.cu"))
-        for kind, key, flops, outs, src_line, src in (
+        names = (("flash_attention_bwd_dq_scalar_d128", "flash_bwd.cu"),
+                 ("flash_attention_bwd_dkv_tf32x3_d128",
+                  "flash_bwd_dkv_tf32x3.cu")) if fp32 else (
+                 ("flash_attention_bwd_dq", "flash_bwd_dq_sm90.cu"),
+                 ("flash_attention_bwd_dkv", "flash_bwd_dkv_sm90.cu"))
+        for kind, key, flops, outs, src_line, (name, src) in (
                 ("dq", keys[0], 6.0 * b * H * pairs * D, b * s * H * D * size,
-                 207, srcs[0]),
+                 207, names[0]),
                 ("dkv", keys[1], 8.0 * b * H * pairs * D,
-                 2 * b * s * KVH * D * size, 253, srcs[1])):
-            name = f"flash_attention_bwd_{kind}{suffix}"
+                 2 * b * s * KVH * D * size, 253, names[1])):
             bnd, by = bound_ms(ins + outs, flops, dt)
+            what = f"bound {bnd:.4f} ms ({by})"
+            if fp32 and kind == "dkv":
+                simt, bnd, by = fp32_bounds(ins + outs, flops)
+                what = (f"SIMT bound {simt:.4f} ms, 3xTF32 floor {bnd:.4f} "
+                        f"ms ({by})")
             print(f"  {name} timing b={b} s={s} causal {str(dt)[6:]}: "
-                  f"kernel {ks[key]:.4f} ms, bound {bnd:.4f} ms ({by}); "
-                  f"plain dq+dk+dv {plain_ms:.4f} ms, sdpa backward "
-                  f"dq+dk+dv {lib_ms:.4f} ms", flush=True)
+                  f"kernel {ks[key]:.4f} ms, {what}; plain dq+dk+dv "
+                  f"{plain_ms:.4f} ms, sdpa backward dq+dk+dv {lib_ms:.4f} ms",
+                  flush=True)
             rows.append({"name": name, "route": "cuda",
                          "source": f"ray_tpu_torch/csrc/{src}",
                          "replaces": f"ray_tpu/ops/attention.py:{src_line}",
@@ -822,10 +883,10 @@ def flash_d256_phase(dev) -> list:
     """The flash forward, dQ and dK/dV at head dim 256 (Gemma's), fp32 and
     bf16, 16/16 heads, each against its plain version, with masks on
     ragged lengths and sq < sk: every bf16 launch on the wgmma route,
-    every fp32 launch on the scalar route. Timed at the Gemma serving
-    prefill (b 8 x s 512) and, for the backward, at b 2 x s 2048, beside
-    scaled_dot_product_attention and its backward: the wgmma kernels in
-    bf16, the scalar kernels in fp32."""
+    every fp32 forward and dK/dV launch on the 3xTF32 route and every fp32
+    dQ on the scalar one. Timed at the Gemma serving prefill (b 8 x s 512)
+    and, for the backward, at b 2 x s 2048, beside
+    scaled_dot_product_attention and its backward."""
     from ray_tpu_torch.ops.attention import (flash_backward,
                                              flash_backward_plain,
                                              flash_forward,
@@ -878,13 +939,17 @@ def flash_d256_phase(dev) -> list:
     n = {key: c - before[key] for key, c in counters().items()}
     n_bf16 = n_calls[torch.bfloat16]
     total = sum(n_calls.values())
-    print(f"  d=256 launches: forward {n['fwd']} (wgmma {n['fwd_sm90']}), "
-          f"dQ {n['dq']} (wgmma {n['dq_sm90']}), dK/dV {n['dkv']} (wgmma "
-          f"{n['dkv_sm90']})", flush=True)
+    n_fp32 = total - n_bf16
+    print(f"  d=256 launches: forward {n['fwd']} (wgmma {n['fwd_sm90']}, "
+          f"3xTF32 {n['fwd_tf32x3']}), dQ {n['dq']} (wgmma {n['dq_sm90']}), "
+          f"dK/dV {n['dkv']} (wgmma {n['dkv_sm90']}, 3xTF32 "
+          f"{n['dkv_tf32x3']})", flush=True)
     check(n["fwd"] == n["dq"] == n["dkv"] == total
-          and n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == n_bf16,
+          and n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == n_bf16
+          and n["fwd_tf32x3"] == n["dkv_tf32x3"] == n_fp32,
           f"d-256 routes: want the {n_bf16} bf16 launches of each kernel "
-          f"on wgmma and every fp32 launch scalar, got {n}")
+          f"on wgmma, every fp32 forward and dK/dV on 3xTF32 and every "
+          f"fp32 dQ scalar, got {n}")
 
     rows = {}
     # the forward at the Gemma serving prefill: 8 prompts of 512, causal
@@ -897,13 +962,21 @@ def flash_d256_phase(dev) -> list:
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=10)
         size = q.element_size()
-        bnd, by = bound_ms(4 * b * s * H * D * size + b * H * s * 4,
-                           4.0 * b * H * (s * (s + 1) // 2) * D, dt)
+        fp32 = dt == torch.float32
+        nbytes = 4 * b * s * H * D * size + b * H * s * 4
+        flops = 4.0 * b * H * (s * (s + 1) // 2) * D
+        if fp32:
+            simt, bnd, by = fp32_bounds(nbytes, flops)
+            what = (f"SIMT bound {simt:.4f} ms, 3xTF32 floor {bnd:.4f} ms "
+                    f"({by})")
+        else:
+            bnd, by = bound_ms(nbytes, flops, dt)
+            what = f"bound {bnd:.4f} ms ({by})"
         print(f"  flash d=256 timing b={b} s={s} causal {str(dt)[6:]}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by})", flush=True)
-        fp32 = dt == torch.float32
-        name, src = (("flash_attention_fwd_scalar", "flash_fwd.cu") if fp32
+              f"{lib_ms:.4f} ms, {what}", flush=True)
+        name, src = (("flash_attention_fwd_tf32x3_d256",
+                      "flash_fwd_tf32x3.cu") if fp32
                      else ("flash_attention_fwd_sm90_d256",
                            "flash_fwd_sm90_d256.cu"))
         rows[name] = {"name": name, "route": "cuda",
@@ -914,7 +987,7 @@ def flash_d256_phase(dev) -> list:
                       "library_ms": lib_ms}
         del q, k, v, qt, kt, vt
     # the backward at b 2 x s 2048, causal: bf16 runs the two wgmma
-    # kernels, fp32 the two scalar kernels
+    # kernels, fp32 the scalar dQ and the 3xTF32 dK/dV
     b, s = 2, 2048
     pairs = s * (s + 1) // 2
     for dt in dts:
@@ -923,7 +996,7 @@ def flash_d256_phase(dev) -> list:
         o, lse = flash_forward_plain(q.float(), k.float(), v.float(), True)
         o = o.to(dt).contiguous()
         dq_kernel, dkv_kernel = (
-            ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel") if fp32 else
+            ("flash_bwd_dq_kernel", "flash_bwd_dkv_tf32x3_kernel") if fp32 else
             ("flash_bwd_dq_sm90_d256_kernel",
              "flash_bwd_dkv_sm90_d256_kernel"))
         ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
@@ -941,7 +1014,8 @@ def flash_d256_phase(dev) -> list:
         ins = 4 * b * s * H * D * size + 2 * b * H * s * 4
         (dq_name, dq_src), (dkv_name, dkv_src) = (
             (("flash_attention_bwd_dq_scalar", "flash_bwd.cu"),
-             ("flash_attention_bwd_dkv_scalar", "flash_bwd.cu")) if fp32 else
+             ("flash_attention_bwd_dkv_tf32x3_d256",
+              "flash_bwd_dkv_tf32x3.cu")) if fp32 else
             (("flash_attention_bwd_dq_sm90_d256",
               "flash_bwd_dq_sm90_d256.cu"),
              ("flash_attention_bwd_dkv_sm90_d256",
@@ -952,10 +1026,15 @@ def flash_d256_phase(dev) -> list:
                 (dkv_name, dkv_kernel, 8.0 * b * H * pairs * D,
                  2 * b * s * KVH * D * size, 253, dkv_src, "dkv")):
             bnd, by = bound_ms(ins + outs, flops, dt)
+            what = f"bound {bnd:.4f} ms ({by})"
+            if fp32 and kind == "dkv":
+                simt, bnd, by = fp32_bounds(ins + outs, flops)
+                what = (f"SIMT bound {simt:.4f} ms, 3xTF32 floor {bnd:.4f} "
+                        f"ms ({by})")
             print(f"  {name} d=256 timing b={b} s={s} causal "
-                  f"{str(dt)[6:]}: kernel {ks[key]:.4f} ms, bound "
-                  f"{bnd:.4f} ms ({by}); plain dq+dk+dv {plain_ms:.4f} ms, "
-                  f"sdpa backward dq+dk+dv {lib_ms:.4f} ms", flush=True)
+                  f"{str(dt)[6:]}: kernel {ks[key]:.4f} ms, {what}; plain "
+                  f"dq+dk+dv {plain_ms:.4f} ms, sdpa backward dq+dk+dv "
+                  f"{lib_ms:.4f} ms", flush=True)
             rows[name] = {"name": name, "route": "cuda",
                           "source": f"ray_tpu_torch/csrc/{src}",
                           "replaces": f"ray_tpu/ops/attention.py:{line}",
@@ -975,10 +1054,10 @@ def flash_d256_phase(dev) -> list:
 
 def flash_small_d_phase(dev) -> None:
     """The tiny presets' head dims 16 and 32, fp32 and bf16, 4/2 heads:
-    the flash forward, dQ and dK/dV (all on the scalar route) causal,
-    non-causal, ragged and sq < sk, and the paged kernel under each row
-    maximum (G 1, 2, 4 and 8) on the old contexts, each against its plain
-    version."""
+    the flash forward, dQ and dK/dV (bf16 on the scalar route, fp32 on the
+    3xTF32 forward and dK/dV and the scalar dQ) causal, non-causal, ragged
+    and sq < sk, and the paged kernel under each row maximum (G 1, 2, 4
+    and 8) on the old contexts, each against its plain version."""
     from ray_tpu_torch.ops.attention import (flash_backward,
                                              flash_backward_plain,
                                              flash_forward,
@@ -1034,9 +1113,58 @@ def flash_small_d_phase(dev) -> None:
     n = {key: c - before[key] for key, c in counters().items()}
     check(n["fwd"] == n["dq"] == n["dkv"] == n_calls
           and n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == 0
+          and n["fwd_tf32x3"] == n["dkv_tf32x3"] == n_calls // 2
           and n["paged"] == n["paged_merge"] == 16,
-          f"d-16/32 launches: want {n_calls} of each flash kernel on the "
-          f"scalar route and 16 paged calls, got {n}")
+          f"d-16/32 launches: want {n_calls} of each flash kernel, the "
+          f"fp32 half of the forward and dK/dV on the 3xTF32 route, the rest "
+          f"scalar, and 16 paged calls, got {n}")
+
+
+def flash_tf32x3_phase(dev) -> None:
+    """The 3xTF32 kernels (the fp32 forward and dK/dV) at every head dim
+    they are built for (16, 32, 64, 128, 256) and GQA groups 1, 4, 7 and 8
+    (2 kv heads), causal and not, at a length ragged to both kernels'
+    tiles (sq = sk = 200): O and lse at atol 1e-4, dQ (the scalar kernel),
+    dK and dV at atol/rtol 1e-4, each against its plain version."""
+    from ray_tpu_torch.ops.attention import (flash_backward,
+                                             flash_backward_plain,
+                                             flash_forward,
+                                             flash_forward_plain)
+
+    KVH, s = 2, 200
+    g = torch.Generator(device=dev).manual_seed(9)
+    before = counters()
+    n_calls, worst = 0, [0.0] * 5
+    for D in (16, 32, 64, 128, 256):
+        for grp in (1, 4, 7, 8):
+            for causal in (True, False):
+                H = KVH * grp
+                q, do = (torch.randn(1, s, H, D, generator=g, device=dev)
+                         for _ in range(2))
+                k, v = (torch.randn(1, s, KVH, D, generator=g, device=dev)
+                        for _ in range(2))
+                o, lse = flash_forward(q, k, v, causal)
+                o_ref, lse_ref = flash_forward_plain(q, k, v, causal)
+                got = flash_backward(q, k, v, o, lse, do, causal)
+                want = flash_backward_plain(q, k, v, o, lse, do, causal)
+                torch.cuda.synchronize()
+                n_calls += 1
+                res = [close(o, o_ref, 1e-4, 0.0),
+                       close(lse, lse_ref, 1e-4, 0.0)]
+                res += [close(a, w, 1e-4, 1e-4) for a, w in zip(got, want)]
+                worst = [max(w, e) for w, (_, e) in zip(worst, res)]
+                check(all(ok for ok, _ in res), f"3xTF32 flash kernels "
+                      f"disagree with their plain versions (d={D} G={grp} "
+                      f"causal={causal}): max err O, lse, dq, dk, dv "
+                      f"{', '.join(f'{e:.3e}' for _, e in res)}")
+    n = {key: c - before[key] for key, c in counters().items()}
+    print(f"  3xTF32 d 16-256 x G 1/4/7/8 x causal/not ({n_calls} calls): "
+          f"worst err O, lse, dq, dk, dv "
+          f"{', '.join(f'{e:.3e}' for e in worst)}", flush=True)
+    check(n["fwd"] == n["fwd_tf32x3"] == n["dkv"] == n["dkv_tf32x3"]
+          == n["dq"] == n_calls and n["dq_sm90"] == 0,
+          f"3xTF32 phase routes: want {n_calls} forward and dK/dV launches "
+          f"on 3xTF32 and as many scalar dQ, got {n}")
 
 
 # ------------------------------------------------------------ phases 2, 3
@@ -1069,26 +1197,31 @@ def counters_reset():
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
     flash_forward.launches = flash_forward.sm90_launches = 0
+    flash_forward.tf32x3_launches = 0
     paged_attention.launches = paged_attention.merge_launches = 0
     flash_backward.dq_launches = flash_backward.dq_sm90_launches = 0
     flash_backward.dkv_launches = flash_backward.dkv_sm90_launches = 0
+    flash_backward.dkv_tf32x3_launches = 0
 
 
 def counters() -> dict:
     """Kernel launches since the last reset: the flash forward (all
-    routes, and the bf16 wgmma route), paged (split and merge passes), dQ
-    and dK/dV (all routes, and the wgmma route)."""
+    routes, the bf16 wgmma route and the fp32 3xTF32 route), paged (split
+    and merge passes), dQ (all routes, and the wgmma route) and dK/dV (all
+    routes, the wgmma route and the 3xTF32 route)."""
     from ray_tpu_torch.ops.attention import flash_backward, flash_forward
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
     return {"fwd": flash_forward.launches,
             "fwd_sm90": flash_forward.sm90_launches,
+            "fwd_tf32x3": flash_forward.tf32x3_launches,
             "paged": paged_attention.launches,
             "paged_merge": paged_attention.merge_launches,
             "dq": flash_backward.dq_launches,
             "dq_sm90": flash_backward.dq_sm90_launches,
             "dkv": flash_backward.dkv_launches,
-            "dkv_sm90": flash_backward.dkv_sm90_launches}
+            "dkv_sm90": flash_backward.dkv_sm90_launches,
+            "dkv_tf32x3": flash_backward.dkv_tf32x3_launches}
 
 
 def _model_config(cfg) -> dict:
@@ -1126,12 +1259,16 @@ def fp32_phase(dev, cfg, name) -> int:
     stop(dense)
     fl = counters()["fwd"]
     check(fl > 0, "fp32 dense engine never launched the flash kernel")
-    check(counters()["fwd_sm90"] == 0,
-          "the fp32 engine took the bf16 wgmma kernel")
+    check(counters()["fwd_tf32x3"] == fl,
+          f"fp32 dense engine: {counters()['fwd_tf32x3']} of {fl} flash "
+          f"forward launches on the 3xTF32 kernel")
     counters_reset()
     paged = PagedLLMEngine(page_size=64, **kw)
     got_p = {r: v["tokens"] for r, v in drain(paged, reqs, 120).items()}
     stop(paged)
+    check(counters()["fwd_tf32x3"] == counters()["fwd"],
+          f"fp32 paged engine: flash forward launches off the 3xTF32 "
+          f"kernel: {counters()}")
     pa2 = counters()["paged"]
     check(pa2 > 0, "fp32 paged engine never launched the paged kernel")
     check(counters()["paged_merge"] == pa2,
@@ -1198,8 +1335,10 @@ def grad_phase(dev, cfg, mod=None, seq: int = 256) -> dict:
     check(n["dq"] == n["dkv"] == cfg.num_layers,
           f"flash gradients took {n['dq']} dQ and {n['dkv']} dK/dV "
           f"launches, want {cfg.num_layers} each")
-    check(n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == 0,
-          "fp32 gradients took the bf16 wgmma kernels")
+    check(n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == 0
+          and n["fwd_tf32x3"] == n["fwd"] and n["dkv_tf32x3"] == n["dkv"],
+          f"fp32 gradients: want every forward and dK/dV launch on the "
+          f"3xTF32 kernels and every dQ on the scalar one, got {n}")
     runs = {"reference attention": replace(cfg, attn_impl="reference"),
             "no remat": replace(cfg, remat=False)}
     for what, c in runs.items():
@@ -1248,12 +1387,14 @@ def tiny_phase(dev) -> None:
         stop(eng)
         n = counters()
         print(f"  tiny {name} engine (head dim {cfg.head_dim_}, "
-              f"{str(cfg.dtype)[6:]}): flash launches {n['fwd']} (wgmma "
-              f"{n['fwd_sm90']}), paged launches {n['paged']} (merges "
+              f"{str(cfg.dtype)[6:]}): flash launches {n['fwd']} (3xTF32 "
+              f"{n['fwd_tf32x3']}), paged launches {n['paged']} (merges "
               f"{n['paged_merge']})", flush=True)
+        check(n["fwd_tf32x3"] == n["fwd"],
+              f"tiny {name} engine: fp32 flash launches off the 3xTF32 "
+              f"kernel: {n}")
         if name == "dense":
-            check(n["fwd"] > 0 and n["fwd_sm90"] == 0,
-                  "tiny dense engine: no scalar flash launch")
+            check(n["fwd"] > 0, "tiny dense engine: no flash launch")
         else:
             check(n["paged"] > 0 and n["paged_merge"] == n["paged"],
                   "tiny paged engine: no paged split and merge launches")
@@ -1279,8 +1420,8 @@ def tiny_phase(dev) -> None:
                             mixtral.MixtralConfig.tiny())):
         n = grad_phase(dev, cfg, mod, seq=128)
         print(f"  tiny {name} gradients: flash forward {n['fwd']}, dQ "
-              f"{n['dq']}, dK/dV {n['dkv']} launches, all scalar",
-              flush=True)
+              f"{n['dq']}, dK/dV {n['dkv']} launches (forward and dK/dV "
+              f"3xTF32, dQ scalar)", flush=True)
 
 
 def train_phase(dev) -> dict:
@@ -1744,6 +1885,7 @@ def disagg_fp32_phase(dev) -> dict:
     n_div = sum(len(p) >= 128 for _, p in first + last)
     kw = dict(SERVE_8B, model_config=_model_config(cfg), params=params,
               device=dev, page_size=64)
+    counters_reset()
     eng, out = _serve_once(lambda: PagedLLMEngine(**kw), first, last, 120)
     stop(eng)
     want = {r: v["tokens"] for r, v in out.items()}
@@ -1780,6 +1922,11 @@ def disagg_fp32_phase(dev) -> dict:
                       recovered=action is not None)
         _check_pool(eng, f"fp32 disagg ({name})")
         del eng
+    c = counters()
+    print(f"  fp32 2-layer disagg runs: flash forward launches {c['fwd']} "
+          f"(3xTF32 {c['fwd_tf32x3']}), paged {c['paged']}", flush=True)
+    check(c["fwd_tf32x3"] == c["fwd"] and c["dkv_tf32x3"] == c["dkv"],
+          f"fp32 disagg: flash launches off the 3xTF32 kernels: {c}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2878,6 +3025,7 @@ def main() -> None:
     kernels += paged_families_phase(dev, ctx_main)
     kernels += flash_d256_phase(dev)
     flash_small_d_phase(dev)
+    flash_tf32x3_phase(dev)
     print("phase 2: fp32 full width, 2 layers, dense vs paged: Llama-3-8B, "
           "Qwen2-7B, Gemma-7B", flush=True)
     from ray_tpu_torch.models.llama import LlamaConfig
@@ -2934,23 +3082,23 @@ def main() -> None:
     tp_disagg = tp_disagg_phase(dev, disagg_fp32, disagg)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
-    # wgmma dQ and dK/dV at d 256), the fp32 scalar rows' from phase 2's
-    # Llama dense engine (the d-128 forward) and phase 4's Llama (the d-128
-    # dQ and dK/dV) and Gemma (d 256) runs; the forward's training counts
-    # are printed in 5 and 7
+    # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama
+    # dense engine (the d-128 3xTF32 forward) and phase 4's Llama (the
+    # d-128 scalar dQ and 3xTF32 dK/dV) and Gemma (d 256) runs; the
+    # forward's training counts are printed in 5 and 7
     gemma_train = families["gemma"]
     launches.update(flash_attention_bwd_dq=train["flash_attention_bwd_dq"],
                     flash_attention_bwd_dkv=train["flash_attention_bwd_dkv"],
-                    flash_attention_fwd_scalar_d128=llama_fp32_fwd,
+                    flash_attention_fwd_tf32x3_d128=llama_fp32_fwd,
                     flash_attention_bwd_dq_scalar_d128=llama_fp32["dq"],
-                    flash_attention_bwd_dkv_scalar_d128=llama_fp32["dkv"],
+                    flash_attention_bwd_dkv_tf32x3_d128=llama_fp32["dkv"],
                     flash_attention_fwd_sm90_d256=gemma["fwd"],
-                    flash_attention_fwd_scalar=gemma_fp32["fwd"],
+                    flash_attention_fwd_tf32x3_d256=gemma_fp32["fwd"],
                     paged_attention_gm8_hd128=qwen2["paged"],
                     paged_attention_gm1_hd256=gemma["paged"],
                     flash_attention_bwd_dq_sm90_d256=gemma_train["dq_sm90"],
                     flash_attention_bwd_dq_scalar=gemma_fp32["dq"],
-                    flash_attention_bwd_dkv_scalar=gemma_fp32["dkv"],
+                    flash_attention_bwd_dkv_tf32x3_d256=gemma_fp32["dkv"],
                     flash_attention_bwd_dkv_sm90_d256=gemma_train[
                         "dkv_sm90"])
     # phase 11's sharded runs launch the d-128 wgmma flash kernels too

@@ -1,30 +1,33 @@
 // Flash-attention backward for Hopper (sm_90a), the scalar kernels: dQ
-// and dK/dV for fp32 inputs at head dim 16, 32, 64, 128 and 256, and for
-// bf16 inputs at head dim 16 and 32 (bf16 storage, fp32 arithmetic). bf16
+// for fp32 inputs at head dim 16, 32, 64, 128 and 256, and dQ and dK/dV
+// for bf16 inputs at head dim 16 and 32 (bf16 storage, fp32 arithmetic;
+// the tiny presets' widths, below a wgmma tile's 64-column box). fp32
+// dK/dV takes flash_bwd_dkv_tf32x3.cu (3xTF32 on the tensor cores); bf16
 // at head dim 64 and 128 takes the wgmma kernels fed by TMA
 // (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu), and at head dim 256
 // flash_bwd_dq_sm90_d256.cu and flash_bwd_dkv_sm90_d256.cu.
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dq_kernel (pallas_call at
-// attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368), on
-// the fp32 path. Same function: both recompute P = exp(S*scale - lse) tile
-// by tile from the forward's fp32 row logsumexp, with masked scores at
-// -1e30 under the causal offset sk - sq, then dP = dO V^T and dS = P *
-// (dP - delta), where delta = rowsum(dO * O) comes from the wrapper (XLA
-// computes it outside the Pallas kernels too). dQ = scale * dS K; dK =
-// scale * dS^T Q; dV = P^T dO.
+// attention.py:346) on the fp32 path and ::_flash_bwd_dkv_kernel
+// (pallas_call at :368) at those bf16 widths. Same function: both
+// recompute P = exp(S*scale - lse) tile by tile from the forward's fp32
+// row logsumexp, with masked scores at -1e30 under the causal offset
+// sk - sq, then dP = dO V^T and dS = P * (dP - delta), where delta =
+// rowsum(dO * O) comes from the wrapper (XLA computes it outside the
+// Pallas kernels too). dQ = scale * dS K; dK = scale * dS^T Q; dV = P^T dO.
 //
 // Layout: q, o, dO [b, sq, H, d]; k, v [b, sk, KVH, d] (the port's public
 // layout, read in place through row strides; query head h reads kv head
 // h / (H / KVH)); lse, delta [b*H, sq] fp32; dq [b, sq, H, d]; dk, dv
-// [b, sk, KVH, d], all fp32.
+// [b, sk, KVH, d].
 //
 // What bounds it: dQ does 6*d FLOPs and dK/dV 8*d FLOPs per visible
 // (q, k) pair and query head, far above the card's FLOP/byte ridge, so
-// the bound is the compute rate. These kernels stay scalar fp32 FMAs out
-// of shared memory because a wgmma product on fp32 inputs is TF32, which
-// could not hold the fp32 gradients to their reference at 1e-4. What the
-// design does do:
+// the bound is the compute rate. These kernels are scalar fp32 FMAs out
+// of shared memory: 67 TFLOP/s at best, against 495 / 3 for 3xTF32 on the
+// tensor cores (the fp32 dQ is the next to move there, as
+// flash_bwd_dkv_tf32x3.cu did for dK/dV).
+// What the design does do:
 // - dQ: one block per (b*H, 64 query rows) stages Q and dO once, walks the
 //   64-key K/V tiles up to the causal bound, and keeps the 64 x d fp32 dQ
 //   accumulator in registers; the dS tile lives only in shared memory.
@@ -35,11 +38,9 @@
 //   and no atomics. Both 64 x d fp32 accumulators stay in registers
 //   (256 threads: 4 key rows x d/16 columns each per accumulator).
 // Neither kernel writes a score-sized tensor to device memory.
-// At head dim 256 (Gemma) the tiles halve to 32 query rows and 32 keys:
-// 64-row tiles would need 279,808 (dQ) and 296,448 (dK/dV) bytes of
-// shared memory against the 232,448 a block may take; 32-row tiles need
-// 135,808 and 140,032. At head dims 16 and 32 (the tiny presets' widths,
-// below a wgmma tile's 64-column box) both are also the bf16 route.
+// At head dim 256 (Gemma) the dQ tiles halve to 32 query rows and 32
+// keys: 64-row tiles would need 279,808 bytes of shared memory against
+// the 232,448 a block may take; 32-row tiles need 135,808.
 
 #include "common.cuh"
 
@@ -393,7 +394,7 @@ bool bad_shape(int b, int sq, int sk, int H, int KVH) {
          b * H > 65535;
 }
 
-// The instances of head dim D: fp32, and bf16 at D <= 32.
+// dQ: fp32, and bf16 at D <= 32.
 template <int D>
 cudaError_t dq_d(int dtype, const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
@@ -406,23 +407,6 @@ cudaError_t dq_d(int dtype, const void* q, const void* k, const void* v,
     if (dtype == rtt::kBFloat16)
       return launch_dq<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, b,
                                          sq, sk, H, KVH, causal, scale, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <int D>
-cudaError_t dkv_d(int dtype, const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int b, int sq, int sk, int H, int KVH,
-                  int causal, float scale, cudaStream_t st) {
-  if (dtype == rtt::kFloat32)
-    return launch_dkv<float, D>(q, k, v, dout, lse, delta, dk, dv, b, sq, sk,
-                                H, KVH, causal, scale, st);
-  if constexpr (D <= 32) {
-    if (dtype == rtt::kBFloat16)
-      return launch_dkv<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dk, dv,
-                                          b, sq, sk, H, KVH, causal, scale,
-                                          st);
   }
   return cudaErrorInvalidValue;
 }
@@ -460,37 +444,24 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16 or 32.
+// bf16 at d 16 or 32 (fp32 takes flash_bwd_dkv_tf32x3.cu).
 extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv,
-                                 int dtype, int b, int sq, int sk, int H,
-                                 int KVH, int d, int causal, float scale,
-                                 void* stream) {
+                                 const void* delta, void* dk, void* dv, int b,
+                                 int sq, int sk, int H, int KVH, int d,
+                                 int causal, float scale, void* stream) {
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return static_cast<int>(dkv_d<16>(dtype, q, k, v, dout, lse, delta, dk,
-                                        dv, b, sq, sk, H, KVH, causal, scale,
-                                        st));
+      return static_cast<int>(launch_dkv<__nv_bfloat16, 16>(
+          q, k, v, dout, lse, delta, dk, dv, b, sq, sk, H, KVH, causal, scale,
+          st));
     case 32:
-      return static_cast<int>(dkv_d<32>(dtype, q, k, v, dout, lse, delta, dk,
-                                        dv, b, sq, sk, H, KVH, causal, scale,
-                                        st));
-    case 64:
-      return static_cast<int>(dkv_d<64>(dtype, q, k, v, dout, lse, delta, dk,
-                                        dv, b, sq, sk, H, KVH, causal, scale,
-                                        st));
-    case 128:
-      return static_cast<int>(dkv_d<128>(dtype, q, k, v, dout, lse, delta,
-                                         dk, dv, b, sq, sk, H, KVH, causal,
-                                         scale, st));
-    case 256:
-      return static_cast<int>(dkv_d<256>(dtype, q, k, v, dout, lse, delta,
-                                         dk, dv, b, sq, sk, H, KVH, causal,
-                                         scale, st));
+      return static_cast<int>(launch_dkv<__nv_bfloat16, 32>(
+          q, k, v, dout, lse, delta, dk, dv, b, sq, sk, H, KVH, causal, scale,
+          st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

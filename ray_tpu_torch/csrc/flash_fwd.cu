@@ -1,53 +1,42 @@
-// Flash-attention forward for Hopper (sm_90a), the scalar kernel: fp32
-// inputs at head dim 16, 32, 64, 128 and 256, and bf16 inputs at head dim
-// 16 and 32 (bf16 storage, fp32 arithmetic). bf16 at head dim 64 and 128
-// takes flash_fwd_sm90.cu, at head dim 256 flash_fwd_sm90_d256.cu (wgmma
-// fed by TMA).
+// Flash-attention forward for Hopper (sm_90a), the scalar kernel: bf16
+// inputs at head dim 16 and 32 (bf16 storage, fp32 arithmetic), the tiny
+// presets' widths, below a wgmma tile's 64-column box. bf16 at head dim
+// 64 and 128 takes flash_fwd_sm90.cu, at head dim 256
+// flash_fwd_sm90_d256.cu (wgmma fed by TMA); fp32 at every head dim takes
+// flash_fwd_tf32x3.cu (3xTF32 on the tensor cores).
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_kernel (launched by
-// _flash_forward, pallas_call at attention.py:178). Same function: blocked
-// causal or non-causal attention with an fp32 online softmax, the scale
-// applied to q, the causal mask offset by sk - sq, GQA head h reading kv
-// head h / (H / KVH), outputs O in q's dtype and the fp32 row logsumexp
-// lse = m + log(max(l, 1e-30)) that the backward kernels consume.
+// _flash_forward, pallas_call at attention.py:178) at those widths. Same
+// function: blocked causal or non-causal attention with an fp32 online
+// softmax, the scale applied to q, the causal mask offset by sk - sq, GQA
+// head h reading kv head h / (H / KVH), outputs O in q's dtype and the
+// fp32 row logsumexp lse = m + log(max(l, 1e-30)) that the backward
+// kernels consume.
 //
 // Layout: q [b, sq, H, d], k/v [b, sk, KVH, d] (the port's public layout,
 // read in place through row strides: no transposed or repeated-KV copy),
 // o [b, sq, H, d], lse [b*H, sq].
 //
-// What bounds it: at the serving shapes (b <= 8, s <= 512, d 128) the
-// work is ~4*b*H*s^2*d/2 FLOPs against ~b*s*(2H+2KVH)*d*2 bytes, well
-// above the card's ~295 FLOP/byte ridge, so the bound is the tensor-core
-// rate. This kernel does not reach it: its products are scalar fp32 FMAs
-// out of shared memory (CUDA cores, ~1/15 of the bf16 tensor-core peak).
-// What the design does do: one block per (b*H, 64-row query tile) keeps
-// the whole online softmax (m, l, and a 64 x d fp32 accumulator) in
-// registers, stages each 64-key K/V tile once in shared memory for all 64
-// query rows, never writes the score matrix to device memory, and stops at
-// the causal bound. It stays for fp32 because a wgmma product on fp32
-// inputs is TF32, which could not hold the fp32 engines and gradients to
-// their references at 1e-4. It is also the bf16 route at head dims 16 and
-// 32 (the tiny presets' widths, below a wgmma tile's 64-column box). At
-// head dim 256 its query tile halves to 32 rows so that the tiles fit in
-// shared memory (172,544 bytes) and the accumulator stays at 64 registers
-// a thread.
+// What bounds it: at d 16 and 32 a tile's products are short and the
+// kernel is small next to the layers around it (the tiny presets), so it
+// stays simple: scalar fp32 FMAs out of shared memory. One block per
+// (b*H, 64-row query tile) keeps the whole online softmax (m, l, and a
+// 64 x d fp32 accumulator) in registers, stages each 64-key K/V tile once
+// in shared memory for all 64 query rows, never writes the score matrix
+// to device memory, and stops at the causal bound.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int BK = 64;   // keys per tile
+constexpr int BQ = 64;   // query rows per block
 constexpr int NT = 128;  // threads per block: 8 row groups x 16 col groups
-
-// query rows per block: 64, or 32 at head dim 256
-template <int D>
-constexpr int kBQ = D > 128 ? 32 : 64;
 
 template <int D>
 constexpr size_t flash_smem_bytes() {
   // Qs [BQ][D+1] + Ks [BK][D+1] + Vs [BK][D] + Ps [BQ][BK+1], fp32; the
   // +1 pads keep the column walks of the two products bank-conflict free
-  constexpr int BQ = kBQ<D>;
   return sizeof(float) *
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
@@ -58,7 +47,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int H, int KVH,
                  int causal, float scale) {
-  constexpr int BQ = kBQ<D>;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * (D + 1);
@@ -209,7 +197,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kBQ<D> - 1) / kBQ<D>, b * H);
+  dim3 grid((sq + BQ - 1) / BQ, b * H);
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
@@ -217,29 +205,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-// One head dim's instance of each dtype the scalar route takes.
-template <int D>
-cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v,
-                     void* o, void* lse, int b, int sq, int sk, int H,
-                     int KVH, int causal, float scale, cudaStream_t st) {
-  if (dtype == rtt::kFloat32)
-    return launch<float, D>(q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                            scale, st);
-  if constexpr (D <= 32) {
-    if (dtype == rtt::kBFloat16)
-      return launch<__nv_bfloat16, D>(q, k, v, o, lse, b, sq, sk, H, KVH,
-                                      causal, scale, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16 or 32.
+// bf16 at d 16 or 32.
 extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int dtype, int b, int sq,
-                             int sk, int H, int KVH, int d, int causal,
-                             float scale, void* stream) {
+                             void* o, void* lse, int b, int sq, int sk,
+                             int H, int KVH, int d, int causal, float scale,
+                             void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || KVH <= 0 || H % KVH != 0 ||
       b * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -247,24 +219,12 @@ extern "C" int rtt_flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err = cudaErrorInvalidValue;
   switch (d) {
     case 16:
-      err = launch_d<16>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                         scale, st);
+      err = launch<__nv_bfloat16, 16>(q, k, v, o, lse, b, sq, sk, H, KVH,
+                                      causal, scale, st);
       break;
     case 32:
-      err = launch_d<32>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                         scale, st);
-      break;
-    case 64:
-      err = launch_d<64>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                         scale, st);
-      break;
-    case 128:
-      err = launch_d<128>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                          scale, st);
-      break;
-    case 256:
-      err = launch_d<256>(dtype, q, k, v, o, lse, b, sq, sk, H, KVH, causal,
-                          scale, st);
+      err = launch<__nv_bfloat16, 32>(q, k, v, o, lse, b, sq, sk, H, KVH,
+                                      causal, scale, st);
       break;
   }
   return static_cast<int>(err);

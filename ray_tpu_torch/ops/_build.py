@@ -48,11 +48,13 @@ _F = ctypes.c_float
 # entry returns the cudaError_t of its launch, rtt_error_string its name
 _SIGNATURES = {
     "rtt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _F, _P],
+                      _F, _P],
     "rtt_flash_fwd_sm90": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _F, _P],
     "rtt_flash_fwd_sm90_d256": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _F, _P],
+    "rtt_flash_fwd_tf32x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _F, _P],
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dq_sm90": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -60,11 +62,13 @@ _SIGNATURES = {
     "rtt_flash_bwd_dq_sm90_d256": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _F, _P],
+                          _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dkv_sm90": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dkv_sm90_d256": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                     _I, _I, _I, _I, _F, _P],
+    "rtt_flash_bwd_dkv_tf32x3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _I, _F, _P],
     "rtt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "rtt_paged_merge": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -17,11 +17,15 @@ bf16 tiles fed by TMA: at head dim 64 or 128 all three
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``,
 ``csrc/flash_bwd_dkv_sm90.cu``); at head dim 256 (Gemma) all three
 too (``csrc/flash_fwd_sm90_d256.cu``, ``csrc/flash_bwd_dq_sm90_d256.cu``,
-``csrc/flash_bwd_dkv_sm90_d256.cu``). fp32 on the card takes the scalar
-kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), which hold fp32
-to 1e-4 where a wgmma on fp32 inputs would be TF32; so does bf16 at head
-dim 16 and 32 (the tiny presets' widths, below a wgmma tile's 64-column
-box), bf16 as storage with fp32 arithmetic.
+``csrc/flash_bwd_dkv_sm90_d256.cu``). fp32 on the card takes, for the
+forward and dK/dV, the kernels that run mma.sync in 3xTF32 (each operand
+split into two TF32 halves, three products summed in fp32: within a few
+ulps of an fp32 product; ``csrc/flash_fwd_tf32x3.cu``,
+``csrc/flash_bwd_dkv_tf32x3.cu``), and for dQ the scalar kernel
+(``csrc/flash_bwd.cu``). bf16 at head dim 16 and 32 (the tiny presets'
+widths, below a wgmma tile's 64-column box) takes the scalar kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), bf16 as storage with
+fp32 arithmetic.
 
 ``flash_attention`` is the ``torch.autograd.Function`` over the two, the
 counterpart of the reference's ``custom_vjp``.
@@ -125,6 +129,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = ("fwd", "dq", "dkv")
 _SCALAR_HEAD_DIMS = (16, 32, 64, 128, 256)
 _SM90_HEAD_DIMS = (64, 128, 256)
+# the kernels that fp32 runs in 3xTF32 (fp32 dQ stays scalar)
+_TF32X3_KERNELS = ("fwd", "dkv")
 
 
 def flash_route(dtype: torch.dtype, head_dim: int, device,
@@ -132,11 +138,12 @@ def flash_route(dtype: torch.dtype, head_dim: int, device,
     """Which kernel computes ``kernel`` (``"fwd"``, ``"dq"`` or
     ``"dkv"``) for inputs of this dtype, head dim and device: ``"sm90"``
     (bf16 on the card at head dim 64, 128 or 256: the wgmma kernels),
-    ``"scalar"`` (on the card, fp32 at head dim 16, 32, 64, 128 or 256,
-    and bf16 at 16 and 32: the scalar kernels, fp32 arithmetic),
-    ``"plain"`` (the CPU:
-    the plain PyTorch versions, any dtype and head dim). Anything else
-    raises ``ValueError``: there is no fallback."""
+    ``"tf32x3"`` (fp32 on the card at head dim 16, 32, 64, 128 or 256,
+    the forward and dK/dV: 3xTF32 on the tensor cores), ``"scalar"`` (on
+    the card, fp32 dQ at those head dims, and bf16 at 16 and 32: the
+    scalar kernels, fp32 arithmetic), ``"plain"`` (the CPU: the plain
+    PyTorch versions, any dtype and head dim). Anything else raises
+    ``ValueError``: there is no fallback."""
     if kernel not in _KERNELS:
         raise ValueError(f"flash attention: unknown kernel {kernel!r} "
                          "(fwd, dq or dkv)")
@@ -153,6 +160,8 @@ def flash_route(dtype: torch.dtype, head_dim: int, device,
                          "the card (float32 or bfloat16)")
     if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS:
         return "sm90"
+    if dtype == torch.float32 and kernel in _TF32X3_KERNELS:
+        return "tf32x3"
     return "scalar"
 
 
@@ -166,6 +175,9 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs of different dtypes")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            # the kernels copy 16-byte chunks (TMA, cp.async, vector loads)
+            raise ValueError(f"{name}: inputs must be 16-byte aligned")
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -175,7 +187,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [b*H, sq]). The route is ``flash_route``'s: CPU tensors take
     ``flash_forward_plain``; CUDA tensors (contiguous) launch
     ``csrc/flash_fwd_sm90.cu`` or, at head dim 256,
-    ``csrc/flash_fwd_sm90_d256.cu`` (route ``"sm90"``), or
+    ``csrc/flash_fwd_sm90_d256.cu`` (route ``"sm90"``),
+    ``csrc/flash_fwd_tf32x3.cu`` (route ``"tf32x3"``) or
     ``csrc/flash_fwd.cu`` (route ``"scalar"``) on the current stream, or
     raise."""
     if sm_scale is None:
@@ -207,20 +220,24 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = lib.rtt_flash_fwd_sm90_d256(*ptrs, *shape, *flags, stream)
         elif route == "sm90":
             err = lib.rtt_flash_fwd_sm90(*ptrs, *shape, d, *flags, stream)
+        elif route == "tf32x3":
+            err = lib.rtt_flash_fwd_tf32x3(*ptrs, *shape, d, *flags, stream)
         else:
-            err = lib.rtt_flash_fwd(*ptrs, _DTYPE_CODES[q.dtype], *shape, d,
-                                    *flags, stream)
+            err = lib.rtt_flash_fwd(*ptrs, *shape, d, *flags, stream)
     _build.check(lib, err, f"flash_forward {route} kernel")
     flash_forward.launches += 1
     if route == "sm90":
         flash_forward.sm90_launches += 1
+    elif route == "tf32x3":
+        flash_forward.tf32x3_launches += 1
     return out, lse
 
 
-# kernel launches, for chip_smoke.py: all routes, and the bf16 wgmma route
-# (the scalar route's are the difference)
+# kernel launches, for chip_smoke.py: all routes, the bf16 wgmma route and
+# the fp32 3xTF32 route (the scalar route's are the rest)
 flash_forward.launches = 0
 flash_forward.sm90_launches = 0
+flash_forward.tf32x3_launches = 0
 
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -270,7 +287,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``csrc/flash_bwd_dq_sm90_d256.cu`` (route ``"sm90"``), or of
     ``csrc/flash_bwd.cu`` (route ``"scalar"``), then the dK/dV kernel of
     ``csrc/flash_bwd_dkv_sm90.cu`` or, at head dim 256,
-    ``csrc/flash_bwd_dkv_sm90_d256.cu`` (route ``"sm90"``), or of
+    ``csrc/flash_bwd_dkv_sm90_d256.cu`` (route ``"sm90"``), of
+    ``csrc/flash_bwd_dkv_tf32x3.cu`` (route ``"tf32x3"``) or of
     ``csrc/flash_bwd.cu`` (route ``"scalar"``), or raise. ``delta =
     rowsum(dO * O)`` is computed here with torch ops, as XLA computes it
     outside the Pallas kernels."""
@@ -309,7 +327,6 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            lse.data_ptr(), delta.data_ptr())
     shape = (b, sq, sk, h, kvh)
     flags = (int(bool(causal)), float(sm_scale))
-    code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if dq_route == "sm90" and d == 256:
@@ -318,8 +335,9 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         elif dq_route == "sm90":
             err = lib.rtt_flash_bwd_dq_sm90(*ins, dq.data_ptr(), *shape, d,
                                             *flags, stream)
-        else:    # the scalar entries take the dtype first
-            err = lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(), code, *shape, d,
+        else:    # the scalar dQ takes the dtype first
+            err = lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(),
+                                       _DTYPE_CODES[q.dtype], *shape, d,
                                        *flags, stream)
         _build.check(lib, err, f"flash_backward {dq_route} dQ kernel")
         flash_backward.dq_launches += 1
@@ -332,22 +350,28 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         elif dkv_route == "sm90":
             err = lib.rtt_flash_bwd_dkv_sm90(*ins, *outs, *shape, d, *flags,
                                              stream)
+        elif dkv_route == "tf32x3":
+            err = lib.rtt_flash_bwd_dkv_tf32x3(*ins, *outs, *shape, d,
+                                               *flags, stream)
         else:
-            err = lib.rtt_flash_bwd_dkv(*ins, *outs, code, *shape, d,
-                                        *flags, stream)
+            err = lib.rtt_flash_bwd_dkv(*ins, *outs, *shape, d, *flags,
+                                        stream)
         _build.check(lib, err, f"flash_backward {dkv_route} dK/dV kernel")
         flash_backward.dkv_launches += 1
         if dkv_route == "sm90":
             flash_backward.dkv_sm90_launches += 1
+        elif dkv_route == "tf32x3":
+            flash_backward.dkv_tf32x3_launches += 1
     return dq, dk, dv
 
 
 # kernel launches, for chip_smoke.py: all routes, and the bf16 wgmma
-# route of each kernel
+# route of each kernel and the fp32 3xTF32 route of dK/dV
 flash_backward.dq_launches = 0
 flash_backward.dq_sm90_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dkv_sm90_launches = 0
+flash_backward.dkv_tf32x3_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

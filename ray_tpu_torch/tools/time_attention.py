@@ -1,6 +1,7 @@
-"""Device time of the bf16 attention kernels of one checkout.
+"""Device time of the attention kernels of one checkout.
 
     python3 ray_tpu_torch/tools/time_attention.py [--tree DIR]
+        [--dtype bfloat16|float32]
 
 Imports ``ray_tpu_torch`` from ``DIR`` (default: the checkout holding
 this file), so two checkouts can be timed in turns on one card, e.g. a
@@ -9,7 +10,9 @@ parent commit unpacked under ``_tree/parent``::
     for t in _tree/parent . . _tree/parent; do
         python3 ray_tpu_torch/tools/time_attention.py --tree $t; done
 
-Times, on bf16 inputs with 32/8 heads and d 128, causal: the forward
+Times, on inputs of ``--dtype`` (bf16 by default; fp32 takes the fp32
+routes, e.g. the 3xTF32 forward and dK/dV against a parent's scalar
+ones) with 32/8 heads and d 128, causal: the forward
 wrapper at the dense engine's largest prefill (b 8, s 512) and at the
 training shape (b 4, s 2048), by CUDA events around each call after a
 512 MB write that evicts the 50 MB L2 and keeps the card busy while the
@@ -55,6 +58,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve()
                                           .parents[2]))
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -67,7 +72,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("time_attention: no CUDA device")
     dev = torch.device("cuda")
-    H, KVH, D, dt = 32, 8, 128, torch.bfloat16
+    H, KVH, D, dt = 32, 8, 128, getattr(torch, args.dtype)
     g = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(128 << 20, dtype=torch.float32, device=dev)
 
@@ -90,7 +95,8 @@ def main() -> None:
             total += start.elapsed_time(end)
         return total / iters
 
-    out = {"tree": args.tree, "card": _smi(), "kernels": []}
+    out = {"tree": args.tree, "dtype": args.dtype, "card": _smi(),
+           "kernels": []}
     for name, (b, s) in (("fwd_ms_b8_s512", (8, 512)),
                          ("fwd_ms_b4_s2048", (4, 2048))):
         q, k, v, _ = inputs(b, s)

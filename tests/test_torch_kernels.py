@@ -6,8 +6,9 @@ on the CPU.
   (pointers as ``c_void_p``): a mismatch would cut a pointer silently on
   the card.
 - ``flash_route`` sends each (dtype, head dim, device, kernel) to the
-  wgmma kernels, the scalar kernels (fp32, bf16 at head dim 16 and 32),
-  the plain versions, or a ``ValueError``.
+  wgmma kernels, the 3xTF32 kernels (the fp32 forward and dK/dV), the
+  scalar kernels (the fp32 dQ, bf16 at head dim 16 and 32), the plain
+  versions, or a ``ValueError``.
 - The bf16 forward, dQ and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
   ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``) and
   their head-dim-256 versions (``csrc/flash_fwd_sm90_d256.cu``,
@@ -94,21 +95,21 @@ def test_c_entry_point_signature_matches_source(name):
 _ROUTES = [
     (torch.bfloat16, 128, "cuda", "sm90"),
     (torch.bfloat16, 64, "cuda", "sm90"),
-    (torch.float32, 128, "cuda", "scalar"),
-    (torch.float32, 64, "cuda", "scalar"),
+    (torch.float32, 128, "cuda", "tf32x3"),
+    (torch.float32, 64, "cuda", "tf32x3"),
     (torch.bfloat16, 128, "cpu", "plain"),
     (torch.float32, 32, "cpu", "plain"),
     (torch.float16, 96, "cpu", "plain"),
     (torch.float16, 128, "cuda", None),
     (torch.bfloat16, 96, "cuda", None),
-    (torch.float32, 256, "cuda", "scalar"),
+    (torch.float32, 256, "cuda", "tf32x3"),
     (torch.bfloat16, 128, "meta", None),
     (torch.bfloat16, 256, "cuda", "sm90"),
     (torch.float32, 96, "cuda", None),
     (torch.bfloat16, 512, "cuda", None),
-    (torch.float32, 16, "cuda", "scalar"),
+    (torch.float32, 16, "cuda", "tf32x3"),
     (torch.bfloat16, 16, "cuda", "scalar"),
-    (torch.float32, 32, "cuda", "scalar"),
+    (torch.float32, 32, "cuda", "tf32x3"),
     (torch.bfloat16, 32, "cuda", "scalar"),
     (torch.bfloat16, 8, "cuda", None),
     (torch.bfloat16, 16, "cpu", "plain"),
@@ -126,19 +127,22 @@ def test_flash_route(dtype, d, device, route):
 
 
 # each kernel's route at head dim 256 and below the wgmma tile: bf16 d 256
-# runs all three wgmma kernels
+# runs all three wgmma kernels; fp32 runs the forward and dK/dV in 3xTF32
+# and dQ on the scalar kernel
 _KERNEL_ROUTES = [
     (torch.bfloat16, 256, "fwd", "sm90"),
     (torch.bfloat16, 256, "dq", "sm90"),
     (torch.bfloat16, 256, "dkv", "sm90"),
-    (torch.float32, 256, "fwd", "scalar"),
+    (torch.float32, 256, "fwd", "tf32x3"),
     (torch.float32, 256, "dq", "scalar"),
-    (torch.float32, 256, "dkv", "scalar"),
+    (torch.float32, 256, "dkv", "tf32x3"),
     (torch.bfloat16, 128, "dq", "sm90"),
     (torch.bfloat16, 64, "dkv", "sm90"),
     (torch.bfloat16, 16, "dq", "scalar"),
     (torch.bfloat16, 32, "dkv", "scalar"),
-    (torch.float32, 16, "dkv", "scalar"),
+    (torch.float32, 16, "dkv", "tf32x3"),
+    (torch.float32, 128, "dq", "scalar"),
+    (torch.float32, 64, "dkv", "tf32x3"),
 ]
 
 
