@@ -9,36 +9,39 @@ Phases, each printing what it finds; any failure exits non-zero:
    ray_tpu_torch/csrc (timed), with ptxas's registers and spills; the
    six wgmma kernels (the bf16 flash forward, dQ and dK/dV at d 64/128
    and at d 256) must contain HGMMA instructions in the built library's
-   SASS (cuobjdump), and the three d-256 ones no spill; the ten 3xTF32
-   instances (the fp32 forward and dK/dV at d 16-256) HMMA (mma.sync)
-   instructions, and those at d <= 128 no spill.
+   SASS (cuobjdump), and the three d-256 ones no spill; the fifteen
+   3xTF32 instances (the fp32 forward, dQ and dK/dV at d 16-256) HMMA
+   (mma.sync) instructions, and those at d <= 128 no spill.
 1. each kernel against its plain PyTorch version on the card: the flash
    forward at the serving shapes, s 2048 and the training shape (b 4,
    s 2048, bf16), the flash backward (dQ and dK/dV) at b 1/4, s
    128/512/2048, causal and not, sk 512 > sq 128 and d 64, both with
-   ragged lengths (s 100, s 1000, sq 128 / sk 300) and d 64 in bf16, the
+   ragged lengths (s 100, s 1000, sq 128 / sk 300) and d 64 in bf16, fp32
+   at b 1 x s 4096 causal (G 4: 1,536 adds into one dQ accumulator
+   without its restarts), the
    paged kernel at the decode shape and on a 64-page table whose
    contexts land on the split boundaries of its split-K grid, with ctx
    0 exact, out-of-pool ids below ctx read as clamped, and two calls on
-   the same inputs equal bit for bit. fp32 (the 3xTF32 forward and
-   dK/dV, the scalar dQ) at atol 1e-4 (the backward also rtol 1e-4: dK
-   sums up to sk*G products an element), bf16 (the wgmma kernels) at
-   atol/rtol 2e-2 against the plain version in fp32 on the same bf16
-   inputs; every bf16 forward, dQ and dK/dV launch must take the wgmma
-   route, every fp32 forward and dK/dV the 3xTF32 one, every fp32 dQ the
-   scalar one. Times of each kernel, its plain version and one PyTorch
-   call computing the same function (scaled_dot_product_attention, its
-   backward for the dQ/dK/dV pair), with the least time the card could
-   take (for fp32 work, the 3xTF32 floor at 495 / 3 TFLOP/s, the 67
-   TFLOP/s SIMT bound printed beside it). The backward is timed at the
-   training shape, the paged wrapper (its split and merge launches) at
-   the decode shape; the fp32 kernels at d 128 at the same shapes.
+   the same inputs equal bit for bit. fp32 (the 3xTF32 forward, dQ and
+   dK/dV) at atol 1e-4 (the backward also rtol 1e-4: dK sums up to sk*G
+   products an element), bf16 (the wgmma kernels) at atol/rtol 2e-2
+   against the plain version in fp32 on the same bf16 inputs; every bf16
+   forward, dQ and dK/dV launch must take the wgmma route, every fp32
+   forward, dQ and dK/dV the 3xTF32 one. Times of each kernel, its plain
+   version and one PyTorch call computing the same function
+   (scaled_dot_product_attention, its backward for the dQ/dK/dV pair),
+   with the least time the card could take (for fp32 work, the 3xTF32
+   floor at 495 / 3 TFLOP/s, the 67 TFLOP/s SIMT bound printed beside
+   it). The backward is timed at the training shape, the paged wrapper
+   (its split and merge launches) at the decode shape; the fp32 kernels
+   at d 128 at the same shapes, and the fp32 dQ and dK/dV pair against
+   SDPA's fp32 backward.
    Phase 1 also holds the paged kernel at the published shapes that
    Qwen2 and Gemma give it (G 7 under the row maximum 8 at hd 128 and
    64, G 1 and G 8 at hd 256; fp32 and bf16; the old contexts and a 64-page
    table; timed at the decode shape), the flash forward, dQ and dK/dV at
    head dim 256 (16/16 heads; every bf16 launch on the wgmma route, every
-   fp32 forward and dK/dV on the 3xTF32 route; timed at b 8 x s 512
+   fp32 launch on the 3xTF32 route; timed at b 8 x s 512
    and, the backward, b 2 x s 2048), the head dims 16 and 32 of the tiny
    presets (the flash kernels, fp32 and bf16, and the paged kernel under
    every row maximum), and the 3xTF32 kernels at d 16, 32, 64, 128 and
@@ -156,8 +159,8 @@ Phases, each printing what it finds; any failure exits non-zero:
    and imported into another, where q7 hits them (128 tokens) and
    decodes the exporter's q7 tokens.
 
-Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward and dK/dV
-launch took the 3xTF32 kernels and every dQ the scalar one.
+Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward, dQ and
+dK/dV launch took the 3xTF32 kernels.
 
 The second line from the end is the kernel table as JSON, one row per
 kernel and instance route (launches of the serving kernels from phases
@@ -339,6 +342,7 @@ NO_SPILL_KERNELS = ("flash_fwd_sm90_d256_kernel",
 # SASS must hold HMMA (mma.sync) instructions, and the instances at d <=
 # 128 must build without a spill
 TF32X3_KERNELS = {"flash_fwd_tf32x3_kernel": 5,
+                  "flash_bwd_dq_tf32x3_kernel": 5,
                   "flash_bwd_dkv_tf32x3_kernel": 5}
 
 
@@ -584,6 +588,9 @@ def flash_bwd_phase(dev) -> list:
              for b in (1, 4) for s in (128, 512, 2048) for c in (True, False)]
     cases += [(4, 128, 512, 128, True, dt) for dt in dts]
     cases += _ragged_cases(dts)
+    # 4096 keys: 1,536 truncating adds into one dQ accumulator at G 4
+    # without its restart every 512 keys
+    cases += [(1, 4096, 4096, 128, True, torch.float32)]
     n_bf16 = sum(dt == torch.bfloat16 for *_, dt in cases)
     before = counters()
     for b, sq, sk, D, causal, dt in cases:
@@ -608,14 +615,15 @@ def flash_bwd_phase(dev) -> list:
     n = {key: c - before[key] for key, c in counters().items()}
     n_fp32 = len(cases) - n_bf16
     check(n["dq_sm90"] == n["dkv_sm90"] == n_bf16
-          and n["dkv_tf32x3"] == n["dq"] - n["dq_sm90"] == n_fp32,
+          and n["dq_tf32x3"] == n["dkv_tf32x3"] == n_fp32
+          and n["dq"] == n["dkv"] == len(cases),
           f"flash backward routes: want {n_bf16} bf16 dQ and dK/dV launches "
-          f"on the wgmma kernels, {n_fp32} fp32 dK/dV on the 3xTF32 one and "
-          f"{n_fp32} fp32 dQ on the scalar one, got {n}")
+          f"on the wgmma kernels and {n_fp32} fp32 dQ and dK/dV on the "
+          f"3xTF32 ones, got {n}")
 
     # timing at the training shape: b 4, s 2048, causal; bf16 (the wgmma
-    # kernels) and fp32 (the fp32 gradients' kernels, phase 4: the scalar
-    # dQ, the 3xTF32 dK/dV)
+    # kernels) and fp32 (the fp32 gradients' kernels, phase 4: the 3xTF32
+    # dQ and dK/dV)
     b, s, D = 4, 2048, 128
     G = H // KVH
     pairs = s * (s + 1) // 2                        # visible (q, k) pairs
@@ -623,8 +631,9 @@ def flash_bwd_phase(dev) -> list:
     for dt in (torch.bfloat16, torch.float32):
         fp32 = dt == torch.float32
         q, k, v, o, lse, do = inputs(b, s, s, D, True, dt)
-        keys = (("flash_bwd_dq_kernel", "flash_bwd_dkv_tf32x3_kernel") if fp32
-                else ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"))
+        keys = (("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
+                if fp32 else
+                ("flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"))
         ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
                        keys)
         plain_ms = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
@@ -643,7 +652,8 @@ def flash_bwd_phase(dev) -> list:
         size = q.element_size()
         ins = ((2 * b * s * H * D + 2 * b * s * KVH * D) * size
                + 2 * b * H * s * 4)
-        names = (("flash_attention_bwd_dq_scalar_d128", "flash_bwd.cu"),
+        names = (("flash_attention_bwd_dq_tf32x3_d128",
+                  "flash_bwd_dq_tf32x3.cu"),
                  ("flash_attention_bwd_dkv_tf32x3_d128",
                   "flash_bwd_dkv_tf32x3.cu")) if fp32 else (
                  ("flash_attention_bwd_dq", "flash_bwd_dq_sm90.cu"),
@@ -655,7 +665,7 @@ def flash_bwd_phase(dev) -> list:
                  2 * b * s * KVH * D * size, 253, names[1])):
             bnd, by = bound_ms(ins + outs, flops, dt)
             what = f"bound {bnd:.4f} ms ({by})"
-            if fp32 and kind == "dkv":
+            if fp32:
                 simt, bnd, by = fp32_bounds(ins + outs, flops)
                 what = (f"SIMT bound {simt:.4f} ms, 3xTF32 floor {bnd:.4f} "
                         f"ms ({by})")
@@ -669,7 +679,12 @@ def flash_bwd_phase(dev) -> list:
                          "max_abs_err": worst[kind, dt], "ms": ks[key],
                          "plain_ms": plain_ms, "bound_ms": bnd,
                          "bound_by": by, "library_ms": lib_ms})
-        if not fp32:
+        if fp32:
+            pair = rows[-2]["ms"] + rows[-1]["ms"]
+            print(f"  fp32 dQ + dK/dV pair b={b} s={s}: {pair:.4f} ms, "
+                  f"sdpa fp32 backward {lib_ms:.4f} ms ({pair / lib_ms:.3f}x)",
+                  flush=True)
+        else:
             # both kernels recompute S and dP: one fused backward would do
             # 10*d FLOPs a visible pair and query head, not the pair's 6*d
             # + 8*d
@@ -883,8 +898,8 @@ def flash_d256_phase(dev) -> list:
     """The flash forward, dQ and dK/dV at head dim 256 (Gemma's), fp32 and
     bf16, 16/16 heads, each against its plain version, with masks on
     ragged lengths and sq < sk: every bf16 launch on the wgmma route,
-    every fp32 forward and dK/dV launch on the 3xTF32 route and every fp32
-    dQ on the scalar one. Timed at the Gemma serving prefill (b 8 x s 512)
+    every fp32 launch on the 3xTF32 route. Timed at the Gemma serving
+    prefill (b 8 x s 512)
     and, for the backward, at b 2 x s 2048, beside
     scaled_dot_product_attention and its backward."""
     from ray_tpu_torch.ops.attention import (flash_backward,
@@ -941,15 +956,14 @@ def flash_d256_phase(dev) -> list:
     total = sum(n_calls.values())
     n_fp32 = total - n_bf16
     print(f"  d=256 launches: forward {n['fwd']} (wgmma {n['fwd_sm90']}, "
-          f"3xTF32 {n['fwd_tf32x3']}), dQ {n['dq']} (wgmma {n['dq_sm90']}), "
-          f"dK/dV {n['dkv']} (wgmma {n['dkv_sm90']}, 3xTF32 "
-          f"{n['dkv_tf32x3']})", flush=True)
+          f"3xTF32 {n['fwd_tf32x3']}), dQ {n['dq']} (wgmma {n['dq_sm90']}, "
+          f"3xTF32 {n['dq_tf32x3']}), dK/dV {n['dkv']} (wgmma "
+          f"{n['dkv_sm90']}, 3xTF32 {n['dkv_tf32x3']})", flush=True)
     check(n["fwd"] == n["dq"] == n["dkv"] == total
           and n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == n_bf16
-          and n["fwd_tf32x3"] == n["dkv_tf32x3"] == n_fp32,
+          and n["fwd_tf32x3"] == n["dq_tf32x3"] == n["dkv_tf32x3"] == n_fp32,
           f"d-256 routes: want the {n_bf16} bf16 launches of each kernel "
-          f"on wgmma, every fp32 forward and dK/dV on 3xTF32 and every "
-          f"fp32 dQ scalar, got {n}")
+          f"on wgmma and every fp32 launch on 3xTF32, got {n}")
 
     rows = {}
     # the forward at the Gemma serving prefill: 8 prompts of 512, causal
@@ -987,7 +1001,7 @@ def flash_d256_phase(dev) -> list:
                       "library_ms": lib_ms}
         del q, k, v, qt, kt, vt
     # the backward at b 2 x s 2048, causal: bf16 runs the two wgmma
-    # kernels, fp32 the scalar dQ and the 3xTF32 dK/dV
+    # kernels, fp32 the two 3xTF32 ones
     b, s = 2, 2048
     pairs = s * (s + 1) // 2
     for dt in dts:
@@ -996,7 +1010,8 @@ def flash_d256_phase(dev) -> list:
         o, lse = flash_forward_plain(q.float(), k.float(), v.float(), True)
         o = o.to(dt).contiguous()
         dq_kernel, dkv_kernel = (
-            ("flash_bwd_dq_kernel", "flash_bwd_dkv_tf32x3_kernel") if fp32 else
+            ("flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
+            if fp32 else
             ("flash_bwd_dq_sm90_d256_kernel",
              "flash_bwd_dkv_sm90_d256_kernel"))
         ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
@@ -1013,7 +1028,8 @@ def flash_d256_phase(dev) -> list:
         size = q.element_size()
         ins = 4 * b * s * H * D * size + 2 * b * H * s * 4
         (dq_name, dq_src), (dkv_name, dkv_src) = (
-            (("flash_attention_bwd_dq_scalar", "flash_bwd.cu"),
+            (("flash_attention_bwd_dq_tf32x3_d256",
+              "flash_bwd_dq_tf32x3.cu"),
              ("flash_attention_bwd_dkv_tf32x3_d256",
               "flash_bwd_dkv_tf32x3.cu")) if fp32 else
             (("flash_attention_bwd_dq_sm90_d256",
@@ -1027,7 +1043,7 @@ def flash_d256_phase(dev) -> list:
                  2 * b * s * KVH * D * size, 253, dkv_src, "dkv")):
             bnd, by = bound_ms(ins + outs, flops, dt)
             what = f"bound {bnd:.4f} ms ({by})"
-            if fp32 and kind == "dkv":
+            if fp32:
                 simt, bnd, by = fp32_bounds(ins + outs, flops)
                 what = (f"SIMT bound {simt:.4f} ms, 3xTF32 floor {bnd:.4f} "
                         f"ms ({by})")
@@ -1041,7 +1057,12 @@ def flash_d256_phase(dev) -> list:
                           "max_abs_err": worst[kind, dt], "ms": ks[key],
                           "plain_ms": plain_ms, "bound_ms": bnd,
                           "bound_by": by, "library_ms": lib_ms}
-        if not fp32:
+        if fp32:
+            pair = rows[dq_name]["ms"] + rows[dkv_name]["ms"]
+            print(f"  fp32 dQ + dK/dV pair d=256 b={b} s={s}: {pair:.4f} ms, "
+                  f"sdpa fp32 backward {lib_ms:.4f} ms ({pair / lib_ms:.3f}x)",
+                  flush=True)
+        else:
             # the d-256 dK/dV kernel computes S^T and dP^T in both consumer
             # warpgroups: 12*d FLOPs a visible pair, not the function's 8*d
             own, _ = bound_ms(ins + 2 * b * s * KVH * D * size,
@@ -1055,7 +1076,7 @@ def flash_d256_phase(dev) -> list:
 def flash_small_d_phase(dev) -> None:
     """The tiny presets' head dims 16 and 32, fp32 and bf16, 4/2 heads:
     the flash forward, dQ and dK/dV (bf16 on the scalar route, fp32 on the
-    3xTF32 forward and dK/dV and the scalar dQ) causal, non-causal, ragged
+    3xTF32 route) causal, non-causal, ragged
     and sq < sk, and the paged kernel under each row maximum (G 1, 2, 4
     and 8) on the old contexts, each against its plain version."""
     from ray_tpu_torch.ops.attention import (flash_backward,
@@ -1113,19 +1134,19 @@ def flash_small_d_phase(dev) -> None:
     n = {key: c - before[key] for key, c in counters().items()}
     check(n["fwd"] == n["dq"] == n["dkv"] == n_calls
           and n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == 0
-          and n["fwd_tf32x3"] == n["dkv_tf32x3"] == n_calls // 2
-          and n["paged"] == n["paged_merge"] == 16,
+          and n["fwd_tf32x3"] == n["dq_tf32x3"] == n["dkv_tf32x3"]
+          == n_calls // 2 and n["paged"] == n["paged_merge"] == 16,
           f"d-16/32 launches: want {n_calls} of each flash kernel, the "
-          f"fp32 half of the forward and dK/dV on the 3xTF32 route, the rest "
-          f"scalar, and 16 paged calls, got {n}")
+          f"fp32 half on the 3xTF32 route, the rest scalar, and 16 paged "
+          f"calls, got {n}")
 
 
 def flash_tf32x3_phase(dev) -> None:
-    """The 3xTF32 kernels (the fp32 forward and dK/dV) at every head dim
-    they are built for (16, 32, 64, 128, 256) and GQA groups 1, 4, 7 and 8
-    (2 kv heads), causal and not, at a length ragged to both kernels'
-    tiles (sq = sk = 200): O and lse at atol 1e-4, dQ (the scalar kernel),
-    dK and dV at atol/rtol 1e-4, each against its plain version."""
+    """The 3xTF32 kernels (the fp32 forward, dQ and dK/dV) at every head
+    dim they are built for (16, 32, 64, 128, 256) and GQA groups 1, 4, 7
+    and 8 (2 kv heads), causal and not, at a length ragged to the
+    kernels' tiles (sq = sk = 200): O and lse at atol 1e-4, dQ, dK and dV
+    at atol/rtol 1e-4, each against its plain version."""
     from ray_tpu_torch.ops.attention import (flash_backward,
                                              flash_backward_plain,
                                              flash_forward,
@@ -1162,9 +1183,9 @@ def flash_tf32x3_phase(dev) -> None:
           f"worst err O, lse, dq, dk, dv "
           f"{', '.join(f'{e:.3e}' for e in worst)}", flush=True)
     check(n["fwd"] == n["fwd_tf32x3"] == n["dkv"] == n["dkv_tf32x3"]
-          == n["dq"] == n_calls and n["dq_sm90"] == 0,
-          f"3xTF32 phase routes: want {n_calls} forward and dK/dV launches "
-          f"on 3xTF32 and as many scalar dQ, got {n}")
+          == n["dq"] == n["dq_tf32x3"] == n_calls,
+          f"3xTF32 phase routes: want {n_calls} forward, dQ and dK/dV "
+          f"launches on 3xTF32, got {n}")
 
 
 # ------------------------------------------------------------ phases 2, 3
@@ -1200,6 +1221,7 @@ def counters_reset():
     flash_forward.tf32x3_launches = 0
     paged_attention.launches = paged_attention.merge_launches = 0
     flash_backward.dq_launches = flash_backward.dq_sm90_launches = 0
+    flash_backward.dq_tf32x3_launches = 0
     flash_backward.dkv_launches = flash_backward.dkv_sm90_launches = 0
     flash_backward.dkv_tf32x3_launches = 0
 
@@ -1207,8 +1229,8 @@ def counters_reset():
 def counters() -> dict:
     """Kernel launches since the last reset: the flash forward (all
     routes, the bf16 wgmma route and the fp32 3xTF32 route), paged (split
-    and merge passes), dQ (all routes, and the wgmma route) and dK/dV (all
-    routes, the wgmma route and the 3xTF32 route)."""
+    and merge passes), dQ and dK/dV (each: all routes, the wgmma route and
+    the 3xTF32 route)."""
     from ray_tpu_torch.ops.attention import flash_backward, flash_forward
     from ray_tpu_torch.ops.paged_attention import paged_attention
 
@@ -1219,6 +1241,7 @@ def counters() -> dict:
             "paged_merge": paged_attention.merge_launches,
             "dq": flash_backward.dq_launches,
             "dq_sm90": flash_backward.dq_sm90_launches,
+            "dq_tf32x3": flash_backward.dq_tf32x3_launches,
             "dkv": flash_backward.dkv_launches,
             "dkv_sm90": flash_backward.dkv_sm90_launches,
             "dkv_tf32x3": flash_backward.dkv_tf32x3_launches}
@@ -1336,9 +1359,10 @@ def grad_phase(dev, cfg, mod=None, seq: int = 256) -> dict:
           f"flash gradients took {n['dq']} dQ and {n['dkv']} dK/dV "
           f"launches, want {cfg.num_layers} each")
     check(n["fwd_sm90"] == n["dq_sm90"] == n["dkv_sm90"] == 0
-          and n["fwd_tf32x3"] == n["fwd"] and n["dkv_tf32x3"] == n["dkv"],
-          f"fp32 gradients: want every forward and dK/dV launch on the "
-          f"3xTF32 kernels and every dQ on the scalar one, got {n}")
+          and n["fwd_tf32x3"] == n["fwd"] and n["dq_tf32x3"] == n["dq"]
+          and n["dkv_tf32x3"] == n["dkv"],
+          f"fp32 gradients: want every forward, dQ and dK/dV launch on the "
+          f"3xTF32 kernels, got {n}")
     runs = {"reference attention": replace(cfg, attn_impl="reference"),
             "no remat": replace(cfg, remat=False)}
     for what, c in runs.items():
@@ -1420,8 +1444,8 @@ def tiny_phase(dev) -> None:
                             mixtral.MixtralConfig.tiny())):
         n = grad_phase(dev, cfg, mod, seq=128)
         print(f"  tiny {name} gradients: flash forward {n['fwd']}, dQ "
-              f"{n['dq']}, dK/dV {n['dkv']} launches (forward and dK/dV "
-              f"3xTF32, dQ scalar)", flush=True)
+              f"{n['dq']}, dK/dV {n['dkv']} launches (all 3xTF32)",
+              flush=True)
 
 
 def train_phase(dev) -> dict:
@@ -1925,7 +1949,8 @@ def disagg_fp32_phase(dev) -> dict:
     c = counters()
     print(f"  fp32 2-layer disagg runs: flash forward launches {c['fwd']} "
           f"(3xTF32 {c['fwd_tf32x3']}), paged {c['paged']}", flush=True)
-    check(c["fwd_tf32x3"] == c["fwd"] and c["dkv_tf32x3"] == c["dkv"],
+    check(c["fwd_tf32x3"] == c["fwd"] and c["dq_tf32x3"] == c["dq"]
+          and c["dkv_tf32x3"] == c["dkv"],
           f"fp32 disagg: flash launches off the 3xTF32 kernels: {c}")
     del params
     gc.collect()
@@ -3084,20 +3109,22 @@ def main() -> None:
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama
     # dense engine (the d-128 3xTF32 forward) and phase 4's Llama (the
-    # d-128 scalar dQ and 3xTF32 dK/dV) and Gemma (d 256) runs; the
+    # d-128 3xTF32 dQ and dK/dV) and Gemma (d 256) runs; the
     # forward's training counts are printed in 5 and 7
     gemma_train = families["gemma"]
     launches.update(flash_attention_bwd_dq=train["flash_attention_bwd_dq"],
                     flash_attention_bwd_dkv=train["flash_attention_bwd_dkv"],
                     flash_attention_fwd_tf32x3_d128=llama_fp32_fwd,
-                    flash_attention_bwd_dq_scalar_d128=llama_fp32["dq"],
+                    flash_attention_bwd_dq_tf32x3_d128=llama_fp32[
+                        "dq_tf32x3"],
                     flash_attention_bwd_dkv_tf32x3_d128=llama_fp32["dkv"],
                     flash_attention_fwd_sm90_d256=gemma["fwd"],
                     flash_attention_fwd_tf32x3_d256=gemma_fp32["fwd"],
                     paged_attention_gm8_hd128=qwen2["paged"],
                     paged_attention_gm1_hd256=gemma["paged"],
                     flash_attention_bwd_dq_sm90_d256=gemma_train["dq_sm90"],
-                    flash_attention_bwd_dq_scalar=gemma_fp32["dq"],
+                    flash_attention_bwd_dq_tf32x3_d256=gemma_fp32[
+                        "dq_tf32x3"],
                     flash_attention_bwd_dkv_tf32x3_d256=gemma_fp32["dkv"],
                     flash_attention_bwd_dkv_sm90_d256=gemma_train[
                         "dkv_sm90"])

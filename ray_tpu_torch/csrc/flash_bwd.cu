@@ -1,20 +1,20 @@
 // Flash-attention backward for Hopper (sm_90a), the scalar kernels: dQ
-// for fp32 inputs at head dim 16, 32, 64, 128 and 256, and dQ and dK/dV
-// for bf16 inputs at head dim 16 and 32 (bf16 storage, fp32 arithmetic;
-// the tiny presets' widths, below a wgmma tile's 64-column box). fp32
-// dK/dV takes flash_bwd_dkv_tf32x3.cu (3xTF32 on the tensor cores); bf16
-// at head dim 64 and 128 takes the wgmma kernels fed by TMA
-// (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu), and at head dim 256
-// flash_bwd_dq_sm90_d256.cu and flash_bwd_dkv_sm90_d256.cu.
+// and dK/dV for bf16 inputs at head dim 16 and 32 (bf16 storage, fp32
+// arithmetic; the tiny presets' widths, below a wgmma tile's 64-column
+// box). fp32 takes flash_bwd_dq_tf32x3.cu and flash_bwd_dkv_tf32x3.cu
+// (3xTF32 on the tensor cores); bf16 at head dim 64 and 128 takes the
+// wgmma kernels fed by TMA (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu),
+// and at head dim 256 flash_bwd_dq_sm90_d256.cu and
+// flash_bwd_dkv_sm90_d256.cu.
 //
 // Replaces: ray_tpu/ops/attention.py::_flash_bwd_dq_kernel (pallas_call at
-// attention.py:346) on the fp32 path and ::_flash_bwd_dkv_kernel
-// (pallas_call at :368) at those bf16 widths. Same function: both
-// recompute P = exp(S*scale - lse) tile by tile from the forward's fp32
-// row logsumexp, with masked scores at -1e30 under the causal offset
-// sk - sq, then dP = dO V^T and dS = P * (dP - delta), where delta =
-// rowsum(dO * O) comes from the wrapper (XLA computes it outside the
-// Pallas kernels too). dQ = scale * dS K; dK = scale * dS^T Q; dV = P^T dO.
+// attention.py:346) and ::_flash_bwd_dkv_kernel (pallas_call at :368) at
+// those bf16 widths. Same function: both recompute P = exp(S*scale - lse)
+// tile by tile from the forward's fp32 row logsumexp, with masked scores
+// at -1e30 under the causal offset sk - sq, then dP = dO V^T and dS =
+// P * (dP - delta), where delta = rowsum(dO * O) comes from the wrapper
+// (XLA computes it outside the Pallas kernels too). dQ = scale * dS K;
+// dK = scale * dS^T Q; dV = P^T dO.
 //
 // Layout: q, o, dO [b, sq, H, d]; k, v [b, sk, KVH, d] (the port's public
 // layout, read in place through row strides; query head h reads kv head
@@ -24,9 +24,8 @@
 // What bounds it: dQ does 6*d FLOPs and dK/dV 8*d FLOPs per visible
 // (q, k) pair and query head, far above the card's FLOP/byte ridge, so
 // the bound is the compute rate. These kernels are scalar fp32 FMAs out
-// of shared memory: 67 TFLOP/s at best, against 495 / 3 for 3xTF32 on the
-// tensor cores (the fp32 dQ is the next to move there, as
-// flash_bwd_dkv_tf32x3.cu did for dK/dV).
+// of shared memory, at widths too narrow for a wgmma tile; no main path
+// at full width launches them.
 // What the design does do:
 // - dQ: one block per (b*H, 64 query rows) stages Q and dO once, walks the
 //   64-key K/V tiles up to the causal bound, and keeps the 64 x d fp32 dQ
@@ -38,9 +37,6 @@
 //   and no atomics. Both 64 x d fp32 accumulators stay in registers
 //   (256 threads: 4 key rows x d/16 columns each per accumulator).
 // Neither kernel writes a score-sized tensor to device memory.
-// At head dim 256 (Gemma) the dQ tiles halve to 32 query rows and 32
-// keys: 64-row tiles would need 279,808 bytes of shared memory against
-// the 232,448 a block may take; 32-row tiles need 135,808.
 
 #include "common.cuh"
 
@@ -48,22 +44,15 @@ namespace {
 
 constexpr int NT = 256;  // threads per block: 16 row groups x 16 col groups
 
-// The tiles at head dim D: BQ query rows and BK keys, 64 each (32 at head
-// dim 256); each thread holds rows rg + 16*i (i < RI) and columns
-// cg + 16*j (j < CJ) of a score tile.
-template <int D>
-struct Tiles {
-  static constexpr int BQ = D > 128 ? 32 : 64;
-  static constexpr int BK = BQ;
-  static constexpr int RI = BQ / 16;
-  static constexpr int CJ = BK / 16;
-};
+// The tiles: BQ query rows and BK keys; each thread holds rows rg + 16*i
+// (i < RI) and columns cg + 16*j (j < CJ) of a score tile.
+constexpr int BQ = 64, BK = 64;
+constexpr int RI = BQ / 16, CJ = BK / 16;
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
   // Qs, dOs [BQ][D+1] + Ks, Vs [BK][D+1] + dSs [BQ][BK+1], fp32; the +1
   // pads keep the column walks of the products bank-conflict free
-  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   return sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) +
                           BQ * (BK + 1));
 }
@@ -71,7 +60,6 @@ constexpr size_t dq_smem_bytes() {
 template <int D>
 constexpr size_t dkv_smem_bytes() {
   // Ks, Vs [BK][D+1] + Qs, dOs [BQ][D+1] + Ps, dSs [BQ][BK+1], fp32
-  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) +
                           2 * BQ * (BK + 1));
 }
@@ -89,7 +77,7 @@ __device__ __forceinline__ void stage(float* S, const T* __restrict__ base,
 
 // The score and dP tiles of one (BQ query rows) x (BK keys) pair, for this
 // thread's rows rg + 16*i and keys cg + 16*j: s = Q K^T, dp = dO V^T.
-template <int D, int RI = Tiles<D>::RI, int CJ = Tiles<D>::CJ>
+template <int D>
 __device__ __forceinline__ void score_tiles(const float* Qs, const float* dOs,
                                             const float* Ks, const float* Vs,
                                             int rg, int cg, float (&s)[RI][CJ],
@@ -141,8 +129,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int sq, int sk, int H, int KVH, int causal, float scale) {
-  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
-  constexpr int RI = Tiles<D>::RI, CJ = Tiles<D>::CJ;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + BQ * (D + 1);
@@ -240,8 +226,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int sq, int sk, int H, int KVH,
                      int causal, float scale) {
-  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
-  constexpr int RI = Tiles<D>::RI, CJ = Tiles<D>::CJ;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BK * (D + 1);
@@ -359,7 +343,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + Tiles<D>::BQ - 1) / Tiles<D>::BQ, b * H);
+  dim3 grid((sq + BQ - 1) / BQ, b * H);
   flash_bwd_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -379,7 +363,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       flash_bwd_dkv_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((sk + Tiles<D>::BK - 1) / Tiles<D>::BK, b * KVH);
+  dim3 grid((sk + BK - 1) / BK, b * KVH);
   flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -394,52 +378,26 @@ bool bad_shape(int b, int sq, int sk, int H, int KVH) {
          b * H > 65535;
 }
 
-// dQ: fp32, and bf16 at D <= 32.
-template <int D>
-cudaError_t dq_d(int dtype, const void* q, const void* k, const void* v,
-                 const void* dout, const void* lse, const void* delta,
-                 void* dq, int b, int sq, int sk, int H, int KVH, int causal,
-                 float scale, cudaStream_t st) {
-  if (dtype == rtt::kFloat32)
-    return launch_dq<float, D>(q, k, v, dout, lse, delta, dq, b, sq, sk, H,
-                               KVH, causal, scale, st);
-  if constexpr (D <= 32) {
-    if (dtype == rtt::kBFloat16)
-      return launch_dq<__nv_bfloat16, D>(q, k, v, dout, lse, delta, dq, b,
-                                         sq, sk, H, KVH, causal, scale, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// dtype: fp32 at d 16, 32, 64, 128 or 256; bf16 at d 16 or 32.
+// bf16 at d 16 or 32 (fp32 takes flash_bwd_dq_tf32x3.cu).
 extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dq, int dtype, int b,
-                                int sq, int sk, int H, int KVH, int d,
-                                int causal, float scale, void* stream) {
+                                const void* delta, void* dq, int b, int sq,
+                                int sk, int H, int KVH, int d, int causal,
+                                float scale, void* stream) {
   if (bad_shape(b, sq, sk, H, KVH))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return static_cast<int>(dq_d<16>(dtype, q, k, v, dout, lse, delta, dq,
-                                       b, sq, sk, H, KVH, causal, scale, st));
+      return static_cast<int>(launch_dq<__nv_bfloat16, 16>(
+          q, k, v, dout, lse, delta, dq, b, sq, sk, H, KVH, causal, scale,
+          st));
     case 32:
-      return static_cast<int>(dq_d<32>(dtype, q, k, v, dout, lse, delta, dq,
-                                       b, sq, sk, H, KVH, causal, scale, st));
-    case 64:
-      return static_cast<int>(dq_d<64>(dtype, q, k, v, dout, lse, delta, dq,
-                                       b, sq, sk, H, KVH, causal, scale, st));
-    case 128:
-      return static_cast<int>(dq_d<128>(dtype, q, k, v, dout, lse, delta,
-                                        dq, b, sq, sk, H, KVH, causal, scale,
-                                        st));
-    case 256:
-      return static_cast<int>(dq_d<256>(dtype, q, k, v, dout, lse, delta,
-                                        dq, b, sq, sk, H, KVH, causal, scale,
-                                        st));
+      return static_cast<int>(launch_dq<__nv_bfloat16, 32>(
+          q, k, v, dout, lse, delta, dq, b, sq, sk, H, KVH, causal, scale,
+          st));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

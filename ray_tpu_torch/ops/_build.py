@@ -56,9 +56,11 @@ _SIGNATURES = {
     "rtt_flash_fwd_tf32x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _F, _P],
     "rtt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _P],
+                         _I, _I, _F, _P],
     "rtt_flash_bwd_dq_sm90": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P],
+    "rtt_flash_bwd_dq_tf32x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dq_sm90_d256": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _I, _I, _F, _P],
     "rtt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -17,15 +17,14 @@ bf16 tiles fed by TMA: at head dim 64 or 128 all three
 (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``,
 ``csrc/flash_bwd_dkv_sm90.cu``); at head dim 256 (Gemma) all three
 too (``csrc/flash_fwd_sm90_d256.cu``, ``csrc/flash_bwd_dq_sm90_d256.cu``,
-``csrc/flash_bwd_dkv_sm90_d256.cu``). fp32 on the card takes, for the
-forward and dK/dV, the kernels that run mma.sync in 3xTF32 (each operand
-split into two TF32 halves, three products summed in fp32: within a few
-ulps of an fp32 product; ``csrc/flash_fwd_tf32x3.cu``,
-``csrc/flash_bwd_dkv_tf32x3.cu``), and for dQ the scalar kernel
-(``csrc/flash_bwd.cu``). bf16 at head dim 16 and 32 (the tiny presets'
-widths, below a wgmma tile's 64-column box) takes the scalar kernels
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), bf16 as storage with
-fp32 arithmetic.
+``csrc/flash_bwd_dkv_sm90_d256.cu``). fp32 on the card takes, for all
+three, the kernels that run mma.sync in 3xTF32 (each operand split into
+two TF32 halves, three products summed in fp32: within a few ulps of an
+fp32 product; ``csrc/flash_fwd_tf32x3.cu``,
+``csrc/flash_bwd_dq_tf32x3.cu``, ``csrc/flash_bwd_dkv_tf32x3.cu``). bf16
+at head dim 16 and 32 (the tiny presets' widths, below a wgmma tile's
+64-column box) takes the scalar kernels (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), bf16 as storage with fp32 arithmetic.
 
 ``flash_attention`` is the ``torch.autograd.Function`` over the two, the
 counterpart of the reference's ``custom_vjp``.
@@ -122,15 +121,13 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-# head dims each route takes on the card, for each of the three kernels
+# the three kernels, and the dtypes and head dims they take on the card:
+# fp32 runs all three in 3xTF32 at every head dim, bf16 the wgmma kernels
+# at _SM90_HEAD_DIMS and the scalar ones below
 _KERNELS = ("fwd", "dq", "dkv")
-_SCALAR_HEAD_DIMS = (16, 32, 64, 128, 256)
+_CARD_DTYPES = (torch.float32, torch.bfloat16)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 _SM90_HEAD_DIMS = (64, 128, 256)
-# the kernels that fp32 runs in 3xTF32 (fp32 dQ stays scalar)
-_TF32X3_KERNELS = ("fwd", "dkv")
 
 
 def flash_route(dtype: torch.dtype, head_dim: int, device,
@@ -139,11 +136,11 @@ def flash_route(dtype: torch.dtype, head_dim: int, device,
     ``"dkv"``) for inputs of this dtype, head dim and device: ``"sm90"``
     (bf16 on the card at head dim 64, 128 or 256: the wgmma kernels),
     ``"tf32x3"`` (fp32 on the card at head dim 16, 32, 64, 128 or 256,
-    the forward and dK/dV: 3xTF32 on the tensor cores), ``"scalar"`` (on
-    the card, fp32 dQ at those head dims, and bf16 at 16 and 32: the
-    scalar kernels, fp32 arithmetic), ``"plain"`` (the CPU: the plain
-    PyTorch versions, any dtype and head dim). Anything else raises
-    ``ValueError``: there is no fallback."""
+    all three kernels: 3xTF32 on the tensor cores), ``"scalar"`` (bf16
+    on the card at head dim 16 and 32: the scalar kernels, fp32
+    arithmetic), ``"plain"`` (the CPU: the plain PyTorch versions, any
+    dtype and head dim). Anything else raises ``ValueError``: there is
+    no fallback."""
     if kernel not in _KERNELS:
         raise ValueError(f"flash attention: unknown kernel {kernel!r} "
                          "(fwd, dq or dkv)")
@@ -152,15 +149,15 @@ def flash_route(dtype: torch.dtype, head_dim: int, device,
         return "plain"
     if kind != "cuda":
         raise ValueError(f"flash attention: unsupported device {device}")
-    if head_dim not in _SCALAR_HEAD_DIMS:
+    if head_dim not in _HEAD_DIMS:
         raise ValueError(f"flash attention: head_dim {head_dim} not "
-                         f"supported on the card {_SCALAR_HEAD_DIMS}")
-    if dtype not in _DTYPE_CODES:
+                         f"supported on the card {_HEAD_DIMS}")
+    if dtype not in _CARD_DTYPES:
         raise ValueError(f"flash attention: dtype {dtype} not supported on "
                          "the card (float32 or bfloat16)")
     if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS:
         return "sm90"
-    if dtype == torch.float32 and kernel in _TF32X3_KERNELS:
+    if dtype == torch.float32:
         return "tf32x3"
     return "scalar"
 
@@ -284,7 +281,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors take ``flash_backward_plain``; CUDA tensors (contiguous)
     launch, on the current stream, the dQ kernel of
     ``csrc/flash_bwd_dq_sm90.cu`` or, at head dim 256,
-    ``csrc/flash_bwd_dq_sm90_d256.cu`` (route ``"sm90"``), or of
+    ``csrc/flash_bwd_dq_sm90_d256.cu`` (route ``"sm90"``), of
+    ``csrc/flash_bwd_dq_tf32x3.cu`` (route ``"tf32x3"``) or of
     ``csrc/flash_bwd.cu`` (route ``"scalar"``), then the dK/dV kernel of
     ``csrc/flash_bwd_dkv_sm90.cu`` or, at head dim 256,
     ``csrc/flash_bwd_dkv_sm90_d256.cu`` (route ``"sm90"``), of
@@ -335,14 +333,18 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         elif dq_route == "sm90":
             err = lib.rtt_flash_bwd_dq_sm90(*ins, dq.data_ptr(), *shape, d,
                                             *flags, stream)
-        else:    # the scalar dQ takes the dtype first
-            err = lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(),
-                                       _DTYPE_CODES[q.dtype], *shape, d,
+        elif dq_route == "tf32x3":
+            err = lib.rtt_flash_bwd_dq_tf32x3(*ins, dq.data_ptr(), *shape, d,
+                                              *flags, stream)
+        else:
+            err = lib.rtt_flash_bwd_dq(*ins, dq.data_ptr(), *shape, d,
                                        *flags, stream)
         _build.check(lib, err, f"flash_backward {dq_route} dQ kernel")
         flash_backward.dq_launches += 1
         if dq_route == "sm90":
             flash_backward.dq_sm90_launches += 1
+        elif dq_route == "tf32x3":
+            flash_backward.dq_tf32x3_launches += 1
         outs = (dk.data_ptr(), dv.data_ptr())
         if dkv_route == "sm90" and d == 256:
             err = lib.rtt_flash_bwd_dkv_sm90_d256(*ins, *outs, *shape,
@@ -366,9 +368,10 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # kernel launches, for chip_smoke.py: all routes, and the bf16 wgmma
-# route of each kernel and the fp32 3xTF32 route of dK/dV
+# route and the fp32 3xTF32 route of each kernel
 flash_backward.dq_launches = 0
 flash_backward.dq_sm90_launches = 0
+flash_backward.dq_tf32x3_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dkv_sm90_launches = 0
 flash_backward.dkv_tf32x3_launches = 0

@@ -11,9 +11,8 @@ parent commit unpacked under ``_tree/parent``::
         python3 ray_tpu_torch/tools/time_attention.py --tree $t; done
 
 Times, on inputs of ``--dtype`` (bf16 by default; fp32 takes the fp32
-routes, e.g. the 3xTF32 forward and dK/dV against a parent's scalar
-ones) with 32/8 heads and d 128, causal: the forward
-wrapper at the dense engine's largest prefill (b 8, s 512) and at the
+routes, e.g. the 3xTF32 dQ against a parent's scalar one) with 32/8
+heads and d 128, causal: the forward wrapper at the dense engine's largest prefill (b 8, s 512) and at the
 training shape (b 4, s 2048), by CUDA events around each call after a
 512 MB write that evicts the 50 MB L2 and keeps the card busy while the
 host enqueues the call (mean of 20), as ``chip_smoke.py`` times; the dQ and dK/dV
@@ -30,9 +29,9 @@ head dim 256 (16/16 heads, Gemma's): the forward at b 8, s 512 by CUDA
 events as above, and the dQ and dK/dV kernels at b 2, s 2048 by
 ``torch.profiler`` as above. Prints one JSON line with the card's name
 and power limit and the names of the kernels the profiler timed (which
-route each backward took: e.g. ``flash_bwd_dq_sm90_d256_kernel`` or the
-scalar ``flash_bwd_dq_kernel`` at head dim 256). Needs one card; imports
-nothing of JAX.
+route each backward took: e.g. ``flash_bwd_dq_sm90_d256_kernel`` in
+bf16, ``flash_bwd_dq_tf32x3_kernel`` in fp32, or a parent's scalar
+``flash_bwd_dq_kernel``). Needs one card; imports nothing of JAX.
 """
 
 from __future__ import annotations

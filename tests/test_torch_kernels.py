@@ -6,9 +6,9 @@ on the CPU.
   (pointers as ``c_void_p``): a mismatch would cut a pointer silently on
   the card.
 - ``flash_route`` sends each (dtype, head dim, device, kernel) to the
-  wgmma kernels, the 3xTF32 kernels (the fp32 forward and dK/dV), the
-  scalar kernels (the fp32 dQ, bf16 at head dim 16 and 32), the plain
-  versions, or a ``ValueError``.
+  wgmma kernels, the 3xTF32 kernels (the fp32 forward, dQ and dK/dV),
+  the scalar kernels (bf16 at head dim 16 and 32), the plain versions,
+  or a ``ValueError``.
 - The bf16 forward, dQ and dK/dV kernels (``csrc/flash_fwd_sm90.cu``,
   ``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``) and
   their head-dim-256 versions (``csrc/flash_fwd_sm90_d256.cu``,
@@ -127,22 +127,26 @@ def test_flash_route(dtype, d, device, route):
 
 
 # each kernel's route at head dim 256 and below the wgmma tile: bf16 d 256
-# runs all three wgmma kernels; fp32 runs the forward and dK/dV in 3xTF32
-# and dQ on the scalar kernel
+# runs all three wgmma kernels; fp32 runs all three in 3xTF32 at every
+# head dim; bf16 below the wgmma tile runs the scalar kernels
 _KERNEL_ROUTES = [
     (torch.bfloat16, 256, "fwd", "sm90"),
     (torch.bfloat16, 256, "dq", "sm90"),
     (torch.bfloat16, 256, "dkv", "sm90"),
     (torch.float32, 256, "fwd", "tf32x3"),
-    (torch.float32, 256, "dq", "scalar"),
+    (torch.float32, 256, "dq", "tf32x3"),
     (torch.float32, 256, "dkv", "tf32x3"),
     (torch.bfloat16, 128, "dq", "sm90"),
     (torch.bfloat16, 64, "dkv", "sm90"),
     (torch.bfloat16, 16, "dq", "scalar"),
     (torch.bfloat16, 32, "dkv", "scalar"),
     (torch.float32, 16, "dkv", "tf32x3"),
-    (torch.float32, 128, "dq", "scalar"),
+    (torch.float32, 128, "dq", "tf32x3"),
     (torch.float32, 64, "dkv", "tf32x3"),
+    (torch.float32, 16, "dq", "tf32x3"),
+    (torch.float32, 32, "dq", "tf32x3"),
+    (torch.float32, 64, "dq", "tf32x3"),
+    (torch.bfloat16, 32, "dq", "scalar"),
 ]
 
 

@@ -1,7 +1,8 @@
 """The 3xTF32 arithmetic of the port's fp32 attention kernels, on the CPU.
 
-``csrc/flash_fwd_tf32x3.cu`` and ``csrc/flash_bwd_dkv_tf32x3.cu`` run
-their fp32 products on the tensor cores (mma.sync m16n8k8 in TF32): each
+``csrc/flash_fwd_tf32x3.cu``, ``csrc/flash_bwd_dq_tf32x3.cu`` and
+``csrc/flash_bwd_dkv_tf32x3.cu`` run their fp32 products on the tensor
+cores (mma.sync m16n8k8 in TF32): each
 operand is split into ``hi = tf32(x)`` (rounded as cvt.rna does: 10
 explicit mantissa bits, ties away from zero) and ``lo = x - hi``, which
 the tensor core truncates to TF32, and ``hi*lo + lo*hi + hi*hi`` is
@@ -12,12 +13,14 @@ from a seed:
 - at d 16 to 256, 3xTF32's error against a float64 product is within 4x
   fp32 matmul's own, while one TF32 product's is above 1e-4 of the
   result's largest entry (above the 1e-4 the card holds fp32 to);
-- a blocked flash forward and dK/dV written with that product, in the
-  kernels' tile order (64-key tiles at d <= 64, else 32, in the forward;
-  64-row query tiles, 32 at d 256, over the GQA group in dK/dV), match
-  ``ray_tpu.ops.attention``'s Pallas kernels in interpret mode at the
-  reference's fp32 tolerance of 2e-5, causal and not, at G 1, 4 and 7;
-  the same blocks with one TF32 product do not.
+- a blocked flash forward, dQ and dK/dV written with that product, in
+  the kernels' tile order (64-key tiles at d <= 64, else 32, in the
+  forward; 64-key tiles at d <= 32, 32 at d 64, else 16, in dQ, its
+  accumulator restarted and added into dQ every 512 keys; 64-row query
+  tiles, 32 at d 256, over the GQA group in dK/dV), match ``ray_tpu.ops.attention``'s
+  Pallas kernels in interpret mode at the reference's fp32 tolerance of
+  2e-5, causal and not, at G 1, 4 and 7 (and dQ over 640 keys, past a
+  restart); the same blocks with one TF32 product do not.
 """
 
 import math
@@ -118,8 +121,12 @@ CASES = {
 }
 
 
+# dQ's cases add 640 keys: its accumulator restarts after 512
+DQ_CASES = dict(CASES, g4_d16_long=(1, 640, 4, 1, 16))
+
+
 def _inputs(case, seed):
-    b, s, h, kvh, d = CASES[case]
+    b, s, h, kvh, d = DQ_CASES[case]
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape).astype(np.float32)
             for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d),
@@ -192,6 +199,42 @@ def emulate_dkv(q, k, v, o, lse, do, causal, scale, mm):
     return (dk * scale).transpose(1, 2), dv.transpose(1, 2)
 
 
+def emulate_dq(q, k, v, o, lse, do, causal, scale, mm):
+    """``flash_bwd_dq_tf32x3.cu``'s arithmetic: q scaled first, K/V tiles
+    of 64 keys (d <= 32), 32 (d 64) or 16, S = Q K^T and dP = dO V^T,
+    P = exp(S - lse) (masked at -1e30), dS = P (dP - delta); dQ += dS K
+    into an accumulator that is restarted every 512 keys after being
+    added, times the scale, into dQ in fp32. (At d 256 the kernel sums S and dP over
+    the two halves of d in two warps; the cases here stop at d 128.)
+    Returns dQ [b, sq, H, d]."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    bk = 64 if d <= 32 else 32 if d == 64 else 16
+    flush = 512
+    qf = (q * scale).transpose(1, 2)
+    dof = do.transpose(1, 2)
+    kf = repeat_kv(k, h // k.shape[2]).transpose(1, 2)
+    vf = repeat_kv(v, h // k.shape[2]).transpose(1, 2)
+    lse = lse.reshape(b, h, sq, 1)
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]   # [b, h, sq, 1]
+    pos = torch.arange(sq)[:, None] + (sk - sq)
+    dq = torch.zeros(b, h, sq, d)
+    acc = torch.zeros(b, h, sq, d)
+    for k0 in range(0, sk, bk):
+        keys = slice(k0, k0 + bk)
+        s = mm(qf, kf[:, :, keys].transpose(-1, -2))
+        if causal:
+            s = torch.where(pos >= torch.arange(k0, k0 + s.shape[-1]), s,
+                            -1e30)
+        p = torch.exp(s - lse)
+        ds = p * (mm(dof, vf[:, :, keys].transpose(-1, -2)) - delta)
+        acc = mm(ds, kf[:, :, keys], acc)
+        if (k0 + bk) % flush == 0 or k0 + bk >= sk:
+            dq = dq + acc * scale
+            acc = torch.zeros_like(acc)
+    return dq.transpose(1, 2)
+
+
 def _np(x):
     return np.asarray(x, dtype=np.float32)
 
@@ -235,3 +278,21 @@ def test_dkv_tf32x3_matches_pallas_interpret(case, causal):
                                    err_msg=name)
     one = emulate_dkv(*args, causal, scale, mm1)
     assert _worst(one, (want_dk, want_dv)) > TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", sorted(DQ_CASES))
+def test_dq_tf32x3_matches_pallas_interpret(case, causal):
+    q, k, v, g = _inputs(case, seed=72)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out, lse = jattn._flash_forward(jq, jk, jv, causal, scale, 64, 64, True)
+    want, _, _ = jattn._flash_backward(
+        jq, jk, jv, out, lse, jg, causal, scale, 64, 64, True)
+    args = (*map(torch.from_numpy, (q, k, v, _np(out))),
+            torch.from_numpy(_np(lse)[..., 0]), torch.from_numpy(g))
+    got = emulate_dq(*args, causal, scale, mm3)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL, rtol=TOL)
+    one = emulate_dq(*args, causal, scale, mm1)
+    assert _worst((one,), (want,)) > TOL
