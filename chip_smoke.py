@@ -158,6 +158,25 @@ Phases, each printing what it finds; any failure exits non-zero:
    cache); q1's pages exported from one ``mesh={tp 1}`` paged engine
    and imported into another, where q7 hits them (128 tokens) and
    decodes the exporter's q7 tokens.
+14. the port's own runtime (``ray_tpu_torch.init``) on the card. (a)
+   the node reports the card as ``{"GPU": 1}``; a CPU task sees
+   ``CUDA_VISIBLE_DEVICES=""`` and no CUDA; two one-GPU bundles stay
+   pending and a two-GPU bundle can never fit; ``num_gpus`` on a task
+   raises the actor-scoped ValueError. (b) a 1 GiB bf16 CPU tensor
+   through ``put``/``get`` bit for bit, the ``get`` a view into the shm
+   store; a CUDA tensor arrives as a CPU tensor with its bits; GB/s. (c)
+   an actor with ``num_gpus=1`` (its worker's ``CUDA_VISIBLE_DEVICES``
+   one id) builds phase 3's bf16 Llama-3-8B weights (seed 0) on its card
+   and serves phase 3's requests through the dense and then the paged
+   engine, driven through actor calls (submit per request, polls of
+   ``collect``; the replica holds a wave until a ``flush`` call hands
+   it to the engine at once, as phase 3 submits it): phase 3's tokens for
+   8/8 requests in each engine and phase 3's launches, the flash forward
+   once a layer a prefill batch, all wgmma, and the paged kernel once a
+   layer a decode step, merges equal to splits; the kernel library
+   loaded, not rebuilt; the actor's time to become ready, the actor-call
+   round trip, TTFT and ITL beside phase 3's. (d) after ``shutdown()`` the
+   card's free memory is back within 1 GiB of its reading before (a).
 
 Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward, dQ and
 dK/dV launch took the 3xTF32 kernels.
@@ -168,7 +187,8 @@ kernel and instance route (launches of the serving kernels from phases
 the fp32 kernels from phase 2's Llama dense engine and phase 4's
 Llama and Gemma runs; the d-128 wgmma rows add phase 11's sharded
 runs and phase 13's training, losses and predictor, the d-128 forward
-and G-4 paged rows phase 12's engines, the G-4 paged row phase 13's);
+and G-4 paged rows phase 12's and phase 14's engines, the G-4 paged
+row phase 13's);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -3015,6 +3035,338 @@ def tp_disagg_phase(dev, phase9a: dict, phase9b: dict) -> dict:
     return {"paged_attention": paged}
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+class EngineReplica:
+    """Phase 14's GPU actor: one of the port's engines on the card its
+    worker was given (``num_gpus=1``: ``CUDA_VISIBLE_DEVICES`` names it),
+    driven through actor calls, submit per request and then polls of
+    ``collect``, as a replica's router drives one. ``submit`` with
+    ``hold`` keeps a request until ``flush`` hands the held wave to the
+    engine at once: the dense engine batches what has arrived when it
+    wakes (every 2 ms when idle), so requests one actor call apart can
+    split phase 3's wave over more prefill batches, whose other GEMM
+    shapes round bf16 differently and change tokens. Without ``hold`` a
+    request enters the engine as its call arrives. The kernel launch
+    counters live in this process, so ``stop`` reports them."""
+
+    def __init__(self, cfg, serve_kw: dict, seed: int, device=None):
+        t0 = time.perf_counter()
+        from ray_tpu_torch.models import llama
+
+        # device None: the engine's own default, the card or a raise
+        self.dev = llama.resolve_device(device)
+        self.params = llama.init_params(cfg, seed=seed, device=self.dev)
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        self.kw = serve_kw
+        self.device = device
+        self.eng = self.runs = None
+        self.held = []
+        self.init_s = time.perf_counter() - t0
+
+    def info(self) -> dict:
+        cuda = self.dev.type == "cuda"
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "gpu_ids": os.environ.get("RTPU_GPU_IDS"),
+                "device_count": torch.cuda.device_count() if cuda else 0,
+                "name": torch.cuda.get_device_name(0) if cuda else "cpu",
+                "init_s": self.init_s}
+
+    def ping(self) -> int:
+        return os.getpid()
+
+    def start(self, kind: str) -> None:
+        from ray_tpu_torch.serve.llm_engine import LLMEngine
+        from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+        counters_reset()
+        kw = dict(self.kw, params=self.params, device=self.device)
+        self.eng = (LLMEngine(**kw) if kind == "dense"
+                    else PagedLLMEngine(page_size=64, **kw))
+        self.runs = _counted(self.eng)
+
+    def submit(self, rid: str, prompt: list, hold: bool = True) -> None:
+        if hold:
+            self.held.append((rid, prompt))
+        else:
+            self.eng.submit(rid, prompt)
+
+    def flush(self) -> None:
+        for rid, prompt in self.held:
+            self.eng.submit(rid, prompt)
+        self.held = []
+
+    def collect(self) -> dict:
+        if not self.eng._thread.is_alive():
+            raise RuntimeError("engine thread died")
+        return self.eng.collect()
+
+    def stop(self) -> tuple:
+        from ray_tpu_torch.ops import _build
+
+        st = dict(self.eng.stats(), **self.runs)
+        self.eng.shutdown()
+        self.eng._thread.join(timeout=60)
+        if self.eng._thread.is_alive():
+            raise RuntimeError("engine thread did not stop")
+        self.eng = None
+        gc.collect()
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return counters(), st, _build.last_build_seconds
+
+
+def _actor_drain(rt, replica, reqs, timeout_s: float,
+                 hold: bool = True) -> dict:
+    """Submit each request with its own actor call, flush the wave into
+    the engine (``hold``; else each request enters the engine as its
+    call arrives), then poll the replica's ``collect`` until every
+    request is back."""
+    for rid, prompt in reqs:
+        replica.submit.remote(rid, prompt, hold)
+    if hold:
+        rt.get(replica.flush.remote(), timeout=timeout_s)
+    out = {}
+    deadline = time.monotonic() + timeout_s
+    while len(out) < len(reqs) and time.monotonic() < deadline:
+        out.update(rt.get(replica.collect.remote(), timeout=timeout_s))
+        time.sleep(0.005)
+    for rid, _ in reqs:
+        check(rid in out, f"request {rid} timed out")
+        check(not isinstance(out[rid], Exception),
+              f"request {rid} failed: {out[rid]!r}")
+    return out
+
+
+def _in_store(t: torch.Tensor) -> bool:
+    import ctypes
+
+    from ray_tpu_torch.core import runtime_context
+
+    mv = runtime_context.get_core().store._mv
+    base = ctypes.addressof(ctypes.c_uint8.from_buffer(mv))
+    return base <= t.data_ptr() and \
+        t.data_ptr() + t.numel() * t.element_size() <= base + mv.nbytes
+
+
+def runtime_phase(dev, phase3: dict) -> dict:
+    """14: the port's own runtime on the card. (a) ``init`` reports the
+    card as ``{"GPU": 1}``; a CPU task sees no card; two one-GPU bundles
+    stay pending, a two-GPU bundle can never fit, ``num_gpus`` on a task
+    raises the actor-scoped ValueError. (b) a 1 GiB bf16 CPU tensor
+    through ``put``/``get`` bit for bit, the ``get`` a view into the
+    store; a CUDA tensor arrives as a CPU tensor with its bits. (c) an
+    actor with ``num_gpus=1`` builds phase 3's weights (seed 0) on its
+    card and serves phase 3's requests through the dense and then the
+    paged engine, driven through actor calls: phase 3's tokens and
+    launches. (d) after ``shutdown`` the card's free memory is back.
+    Returns the actor's launches. On the CPU (a rehearsal, with
+    ``LlamaConfig.llama3_8b`` and ``SERVE_8B`` patched small) the actor
+    runs there and the put moves 64 MiB."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import runtime_context
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.util import placement_group, remove_placement_group
+
+    cuda = dev.type == "cuda"
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16)
+    first, last = serve_8b_requests(cfg.vocab_size)
+    put_bytes = (1 << 30) if cuda else (64 << 20)
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    shm = os.statvfs("/dev/shm")
+    shm_free = shm.f_bavail * shm.f_frsize
+    store_bytes = 2 * put_bytes
+    print(f"  /dev/shm free {shm_free / 2**30:.2f} GiB; store "
+          f"{store_bytes / 2**30:.2f} GiB", flush=True)
+    check(shm_free > store_bytes, "/dev/shm cannot hold the object store")
+    t0 = time.perf_counter()
+    rt.init(num_workers=2, object_store_memory=store_bytes)
+    try:
+        init_s = time.perf_counter() - t0
+        total = runtime_context.get_core().state_summary()[
+            "resources"]["total"]
+        want_gpus = float(torch.cuda.device_count()) if cuda else None
+        check(total.get("GPU") == want_gpus,
+              f"init() reports {total}, want GPU {want_gpus}")
+
+        @rt.remote
+        def cpu_probe():
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.cuda.is_available())
+
+        seen = rt.get(cpu_probe.remote(), timeout=120)
+        check(seen == ("", False), f"a CPU task sees {seen}")
+        if cuda:
+            pg = placement_group([{"GPU": 1}, {"GPU": 1}])
+            check(not pg.wait(2), "two one-GPU bundles fit one card")
+            remove_placement_group(pg)
+            try:
+                placement_group([{"GPU": 2}])
+                check(False, "a two-GPU bundle was accepted on one card")
+            except ValueError as e:
+                check("never fit" in str(e), f"{{GPU: 2}}: {e!r}")
+        try:
+            cpu_probe.options(num_gpus=1).remote()
+            check(False, "a task with num_gpus=1 was accepted")
+        except ValueError as e:
+            check("actor-scoped" in str(e), f"num_gpus task: {e!r}")
+        print(f"  (a) init in {init_s:.2f} s: {total}; a CPU task sees "
+              f"CUDA_VISIBLE_DEVICES={seen[0]!r}, cuda available "
+              f"{seen[1]}; GPU bundles beyond the card pend or never fit; "
+              f"num_gpus on a task raises", flush=True)
+
+        # (b) objects: random bits (NaN patterns included), compared as
+        # int16
+        g = torch.Generator().manual_seed(14)
+        big = torch.randint(-2**15, 2**15, (put_bytes // 2,),
+                            dtype=torch.int16, generator=g)
+        t1 = time.perf_counter()
+        ref = rt.put(big.view(torch.bfloat16))
+        put_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        got = rt.get(ref)
+        get_s = time.perf_counter() - t1
+        check(got.dtype == torch.bfloat16 and torch.equal(
+            got.view(torch.int16), big), "1 GiB bf16: bits differ")
+        check(_in_store(got), "1 GiB bf16: the get is not a view into "
+                              "the store")
+        del got
+        rt.free(ref)
+        line = (f"  (b) {put_bytes / 2**30:.2f} GiB bf16 CPU tensor: put "
+                f"{put_s * 1e3:.1f} ms ({put_bytes / put_s / 1e9:.2f} "
+                f"GB/s), get {get_s * 1e3:.3f} ms (a view into the store), "
+                f"bit for bit")
+        if cuda:
+            small = big[: 64 << 20].view(torch.bfloat16).to(dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ref = rt.put(small)
+            back = rt.get(ref)
+            cuda_s = time.perf_counter() - t1
+            check(back.device.type == "cpu" and torch.equal(
+                back.view(torch.int16), small.cpu().view(torch.int16)),
+                "a CUDA tensor did not arrive as a CPU tensor with its "
+                "bits")
+            nb = small.numel() * 2
+            line += (f"; a {nb / 2**20:.0f} MiB CUDA tensor arrives as a "
+                     f"CPU tensor, bit for bit, put+get {cuda_s * 1e3:.1f} "
+                     f"ms ({nb / cuda_s / 1e9:.2f} GB/s)")
+            del small, back
+            rt.free(ref)
+        del big
+        print(line, flush=True)
+
+        # (c) the slice: a GPU actor serving phase 3's requests
+        t1 = time.perf_counter()
+        # device None on the card: the engine's own default, the card
+        # its worker was given, or a raise
+        replica = rt.remote(EngineReplica).options(
+            num_gpus=1 if cuda else 0).remote(cfg, SERVE_8B, 0,
+                                              None if cuda else "cpu")
+        info = rt.get(replica.info.remote(), timeout=900)
+        ready_s = time.perf_counter() - t1
+        if cuda:
+            check(info["gpu_ids"] == info["visible"]
+                  and len(info["visible"].split(",")) == 1
+                  and info["device_count"] == 1,
+                  f"the GPU actor's worker sees {info}")
+        rtt = []
+        for _ in range(200):
+            t1 = time.perf_counter()
+            rt.get(replica.ping.remote())
+            rtt.append((time.perf_counter() - t1) * 1e3)
+        print(f"  (c) GPU actor ready in {ready_s:.2f} s (spawn, import, "
+              f"weights; {info['init_s']:.2f} s of it building the weights "
+              f"on its card): CUDA_VISIBLE_DEVICES={info['visible']!r}, "
+              f"{info['name']}; actor-call round trip p50 "
+              f"{statistics.median(rtt):.3f} ms, p99 "
+              f"{float(np.percentile(rtt, 99)):.3f} ms (200 calls)",
+              flush=True)
+        # dense and paged with each wave held until flush (phase 3's
+        # batching, so phase 3's tokens); the dense engine a second time
+        # in the now warm process, to split its cold TTFT; the paged
+        # engine once more with each request entering as its call
+        # arrives (its tokens printed: arrival order may change batching)
+        launches = {"dense": (0, 0), "paged": (0, 0)}
+        for kind, hold, label in (("dense", True, "dense"),
+                                  ("dense", True, "dense again (warm)"),
+                                  ("paged", True, "paged"),
+                                  ("paged", False, "paged per request")):
+            rt.get(replica.start.remote(kind), timeout=300)
+            t1 = time.perf_counter()
+            out = _actor_drain(rt, replica, first, 300, hold)
+            out.update(_actor_drain(rt, replica, last, 120, hold))
+            wall = time.perf_counter() - t1
+            n, st, build_s = rt.get(replica.stop.remote(), timeout=120)
+            want = phase3[kind]
+            same = sum(out[r]["tokens"] == want["tokens"][r] for r in out)
+            check(same == len(out) or not hold,
+                  f"{label} in the GPU actor: tokens equal phase 3's for "
+                  f"{same}/{len(out)} requests")
+            got = (n["fwd"], n["paged"])
+            check(got == tuple(want["launches"]) or not hold,
+                  f"{label} in the GPU actor: flash and paged launches "
+                  f"{got}, phase 3 {want['launches']}")
+            # once a layer a prefill batch (dense) and a decode step
+            # (paged), every flash launch on the wgmma route and every
+            # paged split pass with its merge
+            layers = cfg.num_layers
+            want_n = ((layers * st["prefill_batches"], 0) if kind == "dense"
+                      else (0, layers * st["decode_steps"]))
+            check(got == want_n,
+                  f"{label} in the GPU actor: flash and paged launches "
+                  f"{got}, want {want_n} ({st['prefill_batches']} prefill "
+                  f"batches, {st['decode_steps']} decode steps)")
+            check(n["fwd_sm90"] == n["fwd"] and
+                  n["paged_merge"] == n["paged"],
+                  f"{label} in the GPU actor: launches {n}")
+            check(build_s == 0.0, f"the GPU actor rebuilt the kernels "
+                                  f"({build_s:.1f} s)")
+            if kind == "paged":
+                check(st["prefix_hit_tokens"] >= 128,
+                      "the shared 128-token prefix did not hit the cache")
+            lat, ref_lat = _latency_ms(out), want["lat"]
+            note = ("" if hold else
+                    " (each request enters as its call arrives; tokens "
+                    "printed, not required)")
+            equal = ", equal to phase 3's" if hold else ""
+            print(f"  (c) {label} in the GPU actor{note}: tokens equal "
+                  f"phase 3's for {same}/{len(out)} requests; flash "
+                  f"launches {got[0]} (wgmma {n['fwd_sm90']}; "
+                  f"{st['prefill_batches']} prefill batches), paged "
+                  f"launches {got[1]} ({st['decode_steps']} decode "
+                  f"steps){equal}; wall {wall:.2f} s; TTFT p50 {lat['ttft_p50']:.2f} ms "
+                  f"(phase 3 {ref_lat['ttft_p50']:.2f}), ITL p50 "
+                  f"{lat['itl_p50']:.3f} ms (phase 3 "
+                  f"{ref_lat['itl_p50']:.3f})", flush=True)
+            launches[kind] = tuple(a + b for a, b in
+                                   zip(launches[kind], got))
+    finally:
+        rt.shutdown()
+    if cuda:
+        # (d) the actor's process is gone and its context with it
+        deadline = time.monotonic() + 60
+        while True:
+            free = torch.cuda.mem_get_info()[0]
+            if free >= free0 - (1 << 30) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(free >= free0 - (1 << 30),
+              f"after shutdown() the card has {free / 2**30:.2f} GiB free, "
+              f"{free0 / 2**30:.2f} before the runtime")
+        print(f"  (d) after shutdown(): {free / 2**30:.2f} GiB free on the "
+              f"card, {free0 / 2**30:.2f} before the runtime", flush=True)
+    return {"flash_attention_fwd": launches["dense"][0],
+            "paged_attention": launches["paged"][1]}
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -3105,6 +3457,10 @@ def main() -> None:
           "export/import with mesh={tp 1}", flush=True)
     ckpt = checkpoint_phase(dev)
     tp_disagg = tp_disagg_phase(dev, disagg_fp32, disagg)
+    print("phase 14: the port's runtime on the card: resources, objects, "
+          "and Llama-3-8B bf16 served from an actor with num_gpus=1",
+          flush=True)
+    runtime = runtime_phase(dev, phase3)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama
@@ -3134,8 +3490,9 @@ def main() -> None:
                       ("flash_attention_bwd_dkv", "dkv_sm90")):
         launches[name] += sharded[key]
     # and phase 12's engines the serving kernels, phase 13 the training
-    # kernels (its run, its losses, the predictor) and the paged kernel
-    for part in (tp_serve, ckpt, tp_disagg):
+    # kernels (its run, its losses, the predictor) and the paged kernel,
+    # phase 14's GPU actor the serving kernels again
+    for part in (tp_serve, ckpt, tp_disagg, runtime):
         for name, n in part.items():
             launches[name] += n
     for rec in kernels:

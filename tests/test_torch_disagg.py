@@ -272,4 +272,4 @@ def test_fault_env_spec(raw, action, times, target):
         fault_injection.clear()
     assert not fault_injection.enabled()
     with pytest.raises(ValueError):
-        fault_injection.inject("get", "evict")
+        fault_injection.inject("no_such_site", "evict")
