@@ -44,8 +44,10 @@ Phases, each printing what it finds; any failure exits non-zero:
    fp32 launch on the 3xTF32 route; timed at b 8 x s 512
    and, the backward, b 2 x s 2048), the head dims 16 and 32 of the tiny
    presets (the flash kernels, fp32 and bf16, and the paged kernel under
-   every row maximum), and the 3xTF32 kernels at d 16, 32, 64, 128 and
-   256 by GQA groups 1, 4, 7 and 8, causal and not.
+   every row maximum; the scalar bf16 forward, dQ and dK/dV timed at b 4
+   x s 128, head dim 16, beside their plain versions, SDPA and their
+   bounds), and the 3xTF32 kernels at d 16, 32, 64, 128 and 256 by GQA
+   groups 1, 4, 7 and 8, causal and not.
 2. fp32, 2 layers, at full Llama-3-8B, Qwen2-7B and Gemma-7B width: the
    dense engine (flash prefill) and the paged engine (paged decode) give
    identical greedy transcripts, which agree with a cache-free forward
@@ -177,6 +179,25 @@ Phases, each printing what it finds; any failure exits non-zero:
    loaded, not rebuilt; the actor's time to become ready, the actor-call
    round trip, TTFT and ITL beside phase 3's. (d) after ``shutdown()`` the
    card's free memory is back within 1 GiB of its reading before (a).
+15. the Train gang on the card (``ray_tpu_torch.train``, the runtime
+   started afresh). (a) ``TorchTrainer`` with one ``use_gpu`` worker and
+   ``TorchConfig(distributed=True)`` (NCCL at world size 1) trains phase
+   5's run for 3 AdamW steps through ``tools/train_gang.py``'s
+   ``gang_loop``, every gradient averaged over the group: phase 5's first
+   three losses at rtol 2e-2 (the largest difference and bit equality
+   printed), 48 forward and 24 dQ and dK/dV launches in the worker, all
+   wgmma, its ``CUDA_VISIBLE_DEVICES`` one id, the kernel library loaded
+   and not rebuilt; step time beside phase 5's; the card's free memory
+   printed first. (b) a restart drill at phase 7's GPT-2 125M (8 x 1024):
+   a checkpoint (params and AdamW state through ``dist_checkpoint``)
+   reported after each step, the first worker exits after step 1,
+   ``FailureConfig(max_failures=1)``: the restarted gang is a new process
+   on the same card, resumes at step 2, and steps 0-3 give phase 7's
+   losses at rtol 2e-2; the GPU is free after ``fit()``. (c) two one-GPU
+   workers on the one card raise PlacementGroupError naming the GPU
+   bundle within a 5 s ``train_pg_ready_timeout_s``;
+   ``TorchConfig(device=None)`` without ``use_gpu`` raises ValueError.
+   (d) after ``shutdown()`` the card's free memory is back within 1 GiB.
 
 Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward, dQ and
 dK/dV launch took the 3xTF32 kernels.
@@ -186,9 +207,10 @@ kernel and instance route (launches of the serving kernels from phases
 3 and 6, of the backward kernels from phases 5 and 7's Gemma run, of
 the fp32 kernels from phase 2's Llama dense engine and phase 4's
 Llama and Gemma runs; the d-128 wgmma rows add phase 11's sharded
-runs and phase 13's training, losses and predictor, the d-128 forward
-and G-4 paged rows phase 12's and phase 14's engines, the G-4 paged
-row phase 13's);
+runs and phase 13's training, losses and predictor and phase 15's gang
+worker, the d-128 forward and G-4 paged rows phase 12's and phase 14's
+engines, the G-4 paged row phase 13's; the scalar bf16 rows phase 8's,
+0 there: the tiny presets are fp32);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -1093,12 +1115,14 @@ def flash_d256_phase(dev) -> list:
     return list(rows.values())
 
 
-def flash_small_d_phase(dev) -> None:
+def flash_small_d_phase(dev) -> list:
     """The tiny presets' head dims 16 and 32, fp32 and bf16, 4/2 heads:
     the flash forward, dQ and dK/dV (bf16 on the scalar route, fp32 on the
     3xTF32 route) causal, non-causal, ragged
     and sq < sk, and the paged kernel under each row maximum (G 1, 2, 4
-    and 8) on the old contexts, each against its plain version."""
+    and 8) on the old contexts, each against its plain version. Then the
+    scalar kernels (``flash_fwd.cu``, ``flash_bwd.cu``) timed at the tiny
+    engines' shape: returns their rows of the kernel table."""
     from ray_tpu_torch.ops.attention import (flash_backward,
                                              flash_backward_plain,
                                              flash_forward,
@@ -1110,6 +1134,7 @@ def flash_small_d_phase(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(8)
     before = counters()
     n_calls = 0
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}   # bf16: the scalar route
     for D in (16, 32):
         for dt in (torch.float32, torch.bfloat16):
             fp32 = dt == torch.float32
@@ -1140,6 +1165,11 @@ def flash_small_d_phase(dev) -> None:
                 check(all(ok for ok, _ in res), f"d-{D} flash kernels "
                       f"disagree with their plain versions (b={b} sq={sq} "
                       f"sk={sk} causal={causal} {dt})")
+                if not fp32:
+                    errs = [e for _, e in res]
+                    worst["fwd"] = max(worst["fwd"], *errs[:2])
+                    worst["dq"] = max(worst["dq"], errs[2])
+                    worst["dkv"] = max(worst["dkv"], *errs[3:])
             ctx_check = [0, 1, 63, 64, 65, 300, 517, 1024]
             tol = (1e-4, 1e-5) if fp32 else (2e-2, 2e-2)
             for grp in (1, 2, 4, 8):
@@ -1159,6 +1189,78 @@ def flash_small_d_phase(dev) -> None:
           f"d-16/32 launches: want {n_calls} of each flash kernel, the "
           f"fp32 half on the 3xTF32 route, the rest scalar, and 16 paged "
           f"calls, got {n}")
+    return _scalar_rows(dev, worst)
+
+
+def _scalar_rows(dev, worst: dict) -> list:
+    """The scalar bf16 kernels timed at the tiny presets' shape, 4 slots
+    of the 128 bucket (b 4 x s 128, 4/2 heads, head dim 16, causal): the
+    forward by CUDA events, dQ and dK/dV by the profiler, each beside its
+    plain version, SDPA (forward; backward for the pair) and its bound."""
+    from ray_tpu_torch.ops.attention import (flash_backward,
+                                             flash_backward_plain,
+                                             flash_forward,
+                                             flash_forward_plain)
+
+    H, KVH, D, b, s = 4, 2, 16, 4, 128
+    G = H // KVH
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(16)
+    q, do = (torch.randn(b, s, H, D, generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, KVH, D, generator=g, device=dev).to(dt)
+            for _ in range(2))
+    o, lse = flash_forward_plain(q.float(), k.float(), v.float(), True)
+    o = o.to(dt).contiguous()
+    pairs = s * (s + 1) // 2
+    ins = (2 * b * s * H * D + 2 * b * s * KVH * D) * 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).detach()
+    kt.requires_grad_()
+    vt.requires_grad_()
+    before = counters()
+    fwd_ms = time_ms(lambda: flash_forward(q, k, v, True))
+    ks = kernel_ms(lambda: flash_backward(q, k, v, o, lse, do, True),
+                   ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+    n = {key: c - before[key] for key, c in counters().items()}
+    check(n["fwd"] > 0 and n["fwd_sm90"] == n["fwd_tf32x3"] == 0
+          and n["dq"] > 0 and n["dq_sm90"] == n["dq_tf32x3"] == 0,
+          f"the bf16 d-16 timing left the scalar route: {n}")
+    plain_fwd = time_ms(lambda: flash_forward_plain(q, k, v, True))
+    plain_bwd = time_ms(lambda: flash_backward_plain(q, k, v, o, lse, do,
+                                                     True))
+    with torch.no_grad():
+        lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    out = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    rows = []
+    for name, src, line, ms, plain, lib, nbytes, flops, err in (
+            ("flash_attention_fwd_scalar_d16", "flash_fwd.cu", 78, fwd_ms,
+             plain_fwd, lib_fwd, ins + b * H * s * 4,
+             4.0 * b * H * pairs * D, worst["fwd"]),
+            ("flash_attention_bwd_dq_scalar_d16", "flash_bwd.cu", 207,
+             ks["flash_bwd_dq_kernel"], plain_bwd, lib_bwd,
+             ins + 2 * b * H * s * 4 + b * s * H * D * 2,
+             6.0 * b * H * pairs * D, worst["dq"]),
+            ("flash_attention_bwd_dkv_scalar_d16", "flash_bwd.cu", 253,
+             ks["flash_bwd_dkv_kernel"], plain_bwd, lib_bwd,
+             ins + 2 * b * H * s * 4 + 2 * b * s * KVH * D * 2,
+             8.0 * b * H * pairs * D, worst["dkv"])):
+        bnd, by = bound_ms(nbytes, flops, dt)
+        print(f"  {name} timing b={b} s={s} d={D} causal bf16 (scalar): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms"
+              f"{' (backward, dq+dk+dv)' if 'bwd' in name else ''}, bound "
+              f"{bnd:.4f} ms ({by})", flush=True)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"ray_tpu_torch/csrc/{src}",
+                     "replaces": f"ray_tpu/ops/attention.py:{line}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bnd, "bound_by": by, "library_ms": lib})
+    return rows
 
 
 def flash_tf32x3_phase(dev) -> None:
@@ -1404,14 +1506,25 @@ def grad_phase(dev, cfg, mod=None, seq: int = 256) -> dict:
     return n
 
 
-def tiny_phase(dev) -> None:
+def _scalar_launches(n: dict) -> dict:
+    """Launches of the scalar route (all routes less wgmma and 3xTF32),
+    by kernel-table row."""
+    return {f"flash_attention_{k}_scalar_d16":
+            n[kk] - n[f"{kk}_sm90"] - n[f"{kk}_tf32x3"]
+            for k, kk in (("fwd", "fwd"), ("bwd_dq", "dq"),
+                          ("bwd_dkv", "dkv"))}
+
+
+def tiny_phase(dev) -> dict:
     """The tiny presets (head dim 16) on the card: both engines with
     their defaults (Llama tiny, fp32) on prompts that pad to the 128
     bucket give identical greedy transcripts, each token the argmax of a
     cache-free forward through the reference attention; fp32 gradients
     of the Llama, GPT-2 and Mixtral tiny presets through the kernels
     match the reference attention's. The d-16 flash kernels and the
-    hd-16 paged kernel must have run."""
+    hd-16 paged kernel must have run. Returns the scalar route's
+    launches (the presets are fp32: the 3xTF32 kernels serve them)."""
+    scalar = dict.fromkeys(_scalar_launches(counters()), 0)
     from dataclasses import replace
 
     from ray_tpu_torch.models import gpt2, llama, mixtral
@@ -1430,6 +1543,8 @@ def tiny_phase(dev) -> None:
         cfg, params = eng._cfg, eng._params
         stop(eng)
         n = counters()
+        for k, c in _scalar_launches(n).items():
+            scalar[k] += c
         print(f"  tiny {name} engine (head dim {cfg.head_dim_}, "
               f"{str(cfg.dtype)[6:]}): flash launches {n['fwd']} (3xTF32 "
               f"{n['fwd_tf32x3']}), paged launches {n['paged']} (merges "
@@ -1463,9 +1578,13 @@ def tiny_phase(dev) -> None:
                            ("Mixtral", mixtral,
                             mixtral.MixtralConfig.tiny())):
         n = grad_phase(dev, cfg, mod, seq=128)
+        for k, c in _scalar_launches(n).items():
+            scalar[k] += c
         print(f"  tiny {name} gradients: flash forward {n['fwd']}, dQ "
               f"{n['dq']}, dK/dV {n['dkv']} launches (all 3xTF32)",
               flush=True)
+    print(f"  tiny presets: scalar-route launches {scalar}", flush=True)
+    return scalar
 
 
 def train_phase(dev) -> dict:
@@ -1524,7 +1643,8 @@ def train_phase(dev) -> dict:
     torch.cuda.empty_cache()
     return {"flash_attention_fwd": runs["fwd_sm90"],
             "flash_attention_bwd_dq": runs["dq_sm90"],
-            "flash_attention_bwd_dkv": runs["dkv_sm90"]}
+            "flash_attention_bwd_dkv": runs["dkv_sm90"],
+            "losses": losses, "step_ms": step_s * 1e3}
 
 
 # phase 3's engine settings and requests, which phase 9 serves again
@@ -1782,7 +1902,7 @@ def _train(dev, name, mod, cfg, params, toks, steps, n_active, heads,
               f"({runs[f'{kernel}_sm90']} wgmma), want {want} on the "
               f"{routes[kernel]} route")
     del opt, leaves, loss
-    return runs
+    return dict(runs, losses=losses, step_ms=step_s * 1e3)
 
 
 def train_families_phase(dev) -> dict:
@@ -3367,6 +3487,276 @@ def runtime_phase(dev, phase3: dict) -> dict:
             "paged_attention": launches["paged"][1]}
 
 
+# ---------------------------------------------------------------- phase 15
+
+# phase 7's GPT-2 run: batch and sequence
+GANG_GPT2 = (8, 1024)
+
+
+def _gang_gpt2_loop(config) -> None:
+    """15(b)'s gang worker: phase 7's GPT-2 run (params from seed 0,
+    tokens from numpy seed 0, AdamW(3e-4, weight decay 0.01)), resumed
+    from ``train.get_checkpoint()`` when there is one (params and AdamW
+    state through ``dist_checkpoint``); after each step it saves a
+    checkpoint and reports it. The first attempt exits after step 1's
+    report (behind the sentinel file)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.tools.train_gang import average_grads
+    from ray_tpu_torch.train import dist_checkpoint as dc
+
+    dev = torch.device(config.get("device") or
+                       f"cuda:{torch.cuda.current_device()}")
+    cfg, b, s = config["cfg"], config["batch"], config["seq"]
+    params = gpt2.init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1))).to(dev)
+    leaves = llama.param_leaves(params)
+    for _, p in leaves:
+        p.requires_grad_()
+    opt = torch.optim.AdamW([p for _, p in leaves], lr=3e-4,
+                            weight_decay=0.01)
+
+    def state(step):
+        st = opt.state
+        return {"params": {n: p.detach() for n, p in leaves},
+                "exp_avg": {n: st[p]["exp_avg"] for n, p in leaves},
+                "exp_avg_sq": {n: st[p]["exp_avg_sq"] for n, p in leaves},
+                "adam_step": {n: st[p]["step"] for n, p in leaves},
+                "step": step}
+
+    start = 0
+    ckpt = tr.get_checkpoint()
+    if ckpt is not None:
+        # AdamW's state laid out first, then the checkpoint loaded into it
+        for _, p in leaves:
+            opt.state[p] = {"step": torch.tensor(0.0),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
+        with ckpt.as_directory() as d:
+            start = dc.restore(d, like=state(None))["step"] + 1
+    for step in range(start, int(config["steps"])):
+        opt.zero_grad(set_to_none=True)
+        loss = gpt2.loss_fn(cfg, params, {"tokens": toks})
+        loss.backward()
+        average_grads(opt)
+        opt.step()
+        value = loss.item()
+        d = tempfile.mkdtemp(prefix="rtpt_gpt2_")
+        t0 = time.perf_counter()
+        dc.save(d, state(step))
+        tr.report({"step": step, "loss": value, "resumed_at": start,
+                   "save_s": time.perf_counter() - t0, "pid": os.getpid(),
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES")},
+                  checkpoint=tr.Checkpoint.from_directory(d))
+        shutil.rmtree(d, ignore_errors=True)
+        if step == 1 and not os.path.exists(config["sentinel"]):
+            open(config["sentinel"], "w").close()
+            os._exit(1)
+
+
+def _rel(got, want) -> float:
+    return float(np.max(np.abs(np.array(got) - np.array(want))
+                        / np.abs(np.array(want))))
+
+
+def train_gang_phase(dev, phase5: dict, gpt2_losses: list) -> dict:
+    """15: the Train gang on the card. (a) ``TorchTrainer`` with one
+    ``use_gpu`` worker and ``TorchConfig(distributed=True)`` (NCCL at
+    world size 1) runs ``tools/train_gang.py``'s ``gang_loop``: phase 5's
+    run for 3 AdamW steps, every gradient averaged over the group; its
+    losses are phase 5's first three (rtol 2e-2), its launches 2 x 8 x 3
+    forward and 8 x 3 dQ and dK/dV, all wgmma; the worker sees one card
+    and loads the kernel library without building it. (b) phase 7's
+    GPT-2 run through ``_gang_gpt2_loop`` with ``max_failures=1``: the
+    first worker exits after step 1; the restarted gang (a new process,
+    the same card) resumes at step 2 from the checkpoint, and steps 0-3
+    give phase 7's losses (rtol 2e-2); the GPU is free again after. (c)
+    two one-GPU workers on one card raise PlacementGroupError within a
+    5 s ``train_pg_ready_timeout_s``; ``TorchConfig(device=None)``
+    without ``use_gpu`` raises ValueError. (d) after ``shutdown()`` the
+    card's free memory is back. Returns (a)'s launches. On the CPU (a
+    rehearsal, with ``LlamaConfig.llama3_8b``, ``profile_train.RUNS``,
+    ``GPT2Config.gpt2_125m`` and ``GANG_GPT2`` patched small) the gang
+    trains on the CPU over gloo."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.core import runtime_context
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.exceptions import PlacementGroupError
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.tools import profile_train as run
+    from ray_tpu_torch.tools.train_gang import fit as gang_fit
+
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    L, b, s = run.RUNS["llama3_8b"]
+    steps = 3
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+        print(f"  card memory before the gang: {free0 / 2**30:.2f} GiB free;"
+              f" the driver holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+              f" GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f}"
+              f" GiB reserved", flush=True)
+    rt.init(num_workers=2, object_store_memory=256 << 20)
+    storage = tempfile.mkdtemp(prefix="rtpt_gang_")
+    try:
+        # (a) phase 5's run from a gang worker
+        t0 = time.perf_counter()
+        res = gang_fit(1, steps, storage, use_gpu=cuda, device=device,
+                       cfg=run.train_config(), batch=b, seq=s)
+        fit_s = time.perf_counter() - t0
+        check(res.error is None, f"15(a): the gang failed: {res.error!r}")
+        hist = res.metrics_history
+        losses = [m["loss"] for m in hist]
+        want = phase5["losses"][:steps]
+        rel = _rel(losses, want)
+        n = hist[-1]["launches"]
+        step_ms = statistics.median(m["step_ms"] for m in hist[1:])
+        print(f"  (a) {L} layers at Llama-3-8B width, {b} x {s}, {steps} "
+              f"AdamW steps in a gang worker ({hist[0]['backend']} world "
+              f"{hist[0]['world']}, {hist[0]['device']}, "
+              f"CUDA_VISIBLE_DEVICES={hist[0]['visible']!r}): losses "
+              f"{' '.join(f'{x:.4f}' for x in losses)} against phase 5's "
+              f"{' '.join(f'{x:.4f}' for x in want)} (largest relative "
+              f"difference {rel:.3e}; bit for bit {losses == want}); step "
+              f"{step_ms:.1f} ms (median of steps 2-{steps}; first "
+              f"{hist[0]['step_ms']:.1f}) against phase 5's "
+              f"{phase5['step_ms']:.1f} ms; peak {hist[-1]['peak_gib']:.2f}"
+              f" GiB; launches {n}; kernel build in the worker "
+              f"{hist[-1]['build_s']:.1f} s; fit {fit_s:.1f} s; "
+              f"{smi_line() if cuda else 'cpu'}", flush=True)
+        check(rel <= 2e-2, f"15(a): losses {losses} are not phase 5's "
+                           f"{want} at rtol 2e-2")
+        check(hist[0]["world"] == 1 and
+              hist[0]["backend"] == ("nccl" if cuda else "gloo"),
+              f"15(a): the gang's group is {hist[0]['backend']} world "
+              f"{hist[0]['world']}")
+        check(n["fwd"] == n["fwd_sm90"] == 2 * L * steps
+              and n["dq"] == n["dq_sm90"] == L * steps
+              and n["dkv"] == n["dkv_sm90"] == L * steps,
+              f"15(a): launches {n}, want {2 * L * steps} forward and "
+              f"{L * steps} dQ and dK/dV, all wgmma")
+        check(cuda and len((hist[0]["visible"] or "").split(",")) == 1
+              and hist[0]["visible"] != "",
+              f"15(a): the worker sees CUDA_VISIBLE_DEVICES="
+              f"{hist[0]['visible']!r}")
+        check(hist[-1]["build_s"] == 0.0, f"15(a): the gang worker built "
+              f"the kernels ({hist[-1]['build_s']:.1f} s)")
+
+        # (b) the restart drill at GPT-2 125M
+        gcfg = gpt2.GPT2Config.gpt2_125m()
+        gb, gs = GANG_GPT2
+        t0 = time.perf_counter()
+        res = tr.TorchTrainer(
+            _gang_gpt2_loop,
+            train_loop_config={"cfg": gcfg, "batch": gb, "seq": gs,
+                               "steps": 4, "device": device,
+                               "sentinel": os.path.join(storage, "crashed")},
+            torch_config=tr.TorchConfig(device=device, distributed=True,
+                                        timeout_s=600.0),
+            scaling_config=tr.ScalingConfig(num_workers=1, use_gpu=cuda),
+            run_config=tr.RunConfig(
+                storage_path=storage, name="gpt2",
+                failure_config=tr.FailureConfig(max_failures=1),
+                checkpoint_config=tr.CheckpointConfig(num_to_keep=2))).fit()
+        drill_s = time.perf_counter() - t0
+        check(res.error is None, f"15(b): the drill failed: {res.error!r}")
+        hist = res.metrics_history
+        got = {m["step"]: m for m in hist}
+        pids = [m["pid"] for m in hist]
+        first, second = hist[:2], hist[2:]
+        glosses = [got[k]["loss"] for k in sorted(got)]
+        grel = _rel(glosses, gpt2_losses[:4])
+        saves = [m["save_s"] for m in hist]
+        print(f"  (b) GPT-2 125M, {gb} x {gs}: steps "
+              f"{[m['step'] for m in hist]}, pids {pids}, "
+              f"CUDA_VISIBLE_DEVICES {[m['visible'] for m in hist]}, "
+              f"resumed at {[m['resumed_at'] for m in hist]}; losses "
+              f"{' '.join(f'{x:.4f}' for x in glosses)} against phase 7's "
+              f"{' '.join(f'{x:.4f}' for x in gpt2_losses[:4])} (largest "
+              f"relative difference {grel:.3e}; bit for bit "
+              f"{glosses == gpt2_losses[:4]}); checkpoint saves "
+              f"{' '.join(f'{x:.2f}' for x in saves)} s; fit "
+              f"{drill_s:.1f} s", flush=True)
+        check([m["step"] for m in hist] == [0, 1, 2, 3],
+              f"15(b): reported steps {[m['step'] for m in hist]}")
+        check(len(set(m["pid"] for m in first)) == 1 and
+              len(set(m["pid"] for m in second)) == 1 and
+              first[0]["pid"] != second[0]["pid"],
+              f"15(b): the restart did not start a new worker: {pids}")
+        check([m["resumed_at"] for m in hist] == [0, 0, 2, 2],
+              "15(b): the restarted gang did not resume at step 2")
+        check(len({m["visible"] for m in hist}) == 1,
+              f"15(b): the restarted gang got another card: "
+              f"{[m['visible'] for m in hist]}")
+        check(grel <= 2e-2, f"15(b): losses {glosses} are not phase 7's")
+        avail = runtime_context.get_core().state_summary()["resources"][
+            "available"]
+        check(avail.get("GPU") == (1.0 if cuda else None),
+              f"15(b): after fit() the node has {avail} available")
+
+        # (c) refusals
+        os.environ["RTPU_TRAIN_PG_READY_TIMEOUT_S"] = "5"
+        config.reload()
+        t0 = time.perf_counter()
+        try:
+            tr.TorchTrainer(
+                _gang_gpt2_loop, torch_config=tr.TorchConfig(),
+                scaling_config=tr.ScalingConfig(num_workers=2, use_gpu=True),
+                run_config=tr.RunConfig(storage_path=storage,
+                                        name="two")).fit()
+            check(False, "15(c): two one-GPU workers started on one card")
+        except PlacementGroupError as e:
+            pg_s = time.perf_counter() - t0
+            check("'GPU': 1.0" in str(e) and pg_s < 30,
+                  f"15(c): {e!r} after {pg_s:.1f} s")
+        finally:
+            os.environ.pop("RTPU_TRAIN_PG_READY_TIMEOUT_S", None)
+            config.reload()
+        try:
+            tr.TorchTrainer(
+                _gang_gpt2_loop,
+                scaling_config=tr.ScalingConfig(num_workers=1),
+                run_config=tr.RunConfig(storage_path=storage,
+                                        name="cpu")).fit()
+            check(False, "15(c): TorchConfig(device=None) without GPUs ran")
+        except ValueError as e:
+            check("use_gpu=True" in str(e), f"15(c): {e!r}")
+        print(f"  (c) two one-GPU workers on one card: PlacementGroupError "
+              f"after {pg_s:.1f} s (train_pg_ready_timeout_s 5); "
+              f"TorchConfig(device=None) without use_gpu: ValueError",
+              flush=True)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    if cuda:
+        # (d) the gang's processes are gone and their contexts with them
+        deadline = time.monotonic() + 60
+        while True:
+            free = torch.cuda.mem_get_info()[0]
+            if free >= free0 - (1 << 30) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(free >= free0 - (1 << 30),
+              f"15(d): after shutdown() the card has {free / 2**30:.2f} GiB "
+              f"free, {free0 / 2**30:.2f} before the gang")
+        print(f"  (d) after shutdown(): {free / 2**30:.2f} GiB free on the "
+              f"card, {free0 / 2**30:.2f} before the gang", flush=True)
+    return {"flash_attention_fwd": n["fwd_sm90"],
+            "flash_attention_bwd_dq": n["dq_sm90"],
+            "flash_attention_bwd_dkv": n["dkv_sm90"]}
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -3401,7 +3791,7 @@ def main() -> None:
     kernels += flash_bwd_phase(dev)
     kernels += paged_families_phase(dev, ctx_main)
     kernels += flash_d256_phase(dev)
-    flash_small_d_phase(dev)
+    kernels += flash_small_d_phase(dev)
     flash_tf32x3_phase(dev)
     print("phase 2: fp32 full width, 2 layers, dense vs paged: Llama-3-8B, "
           "Qwen2-7B, Gemma-7B", flush=True)
@@ -3437,7 +3827,7 @@ def main() -> None:
           "width", flush=True)
     families = train_families_phase(dev)
     print("phase 8: the tiny presets (head dim 16) on the card", flush=True)
-    tiny_phase(dev)
+    scalar = tiny_phase(dev)
     print("phase 9: disaggregated prefill/decode and the decode API: "
           "Llama-3-8B fp32 2 layers, then bf16 32 layers", flush=True)
     disagg_fp32 = disagg_fp32_phase(dev)
@@ -3461,6 +3851,10 @@ def main() -> None:
           "and Llama-3-8B bf16 served from an actor with num_gpus=1",
           flush=True)
     runtime = runtime_phase(dev, phase3)
+    print("phase 15: the Train gang on the card: Llama-3-8B width trained "
+          "from a GPU gang worker, a restart drill at GPT-2 125M, the "
+          "refusals", flush=True)
+    gang = train_gang_phase(dev, train, families["gpt2"]["losses"])
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama
@@ -3492,9 +3886,12 @@ def main() -> None:
     # and phase 12's engines the serving kernels, phase 13 the training
     # kernels (its run, its losses, the predictor) and the paged kernel,
     # phase 14's GPU actor the serving kernels again
-    for part in (tp_serve, ckpt, tp_disagg, runtime):
+    # and phase 15's gang worker the training kernels
+    for part in (tp_serve, ckpt, tp_disagg, runtime, gang):
         for name, n in part.items():
             launches[name] += n
+    # the scalar kernels' rows: phase 8's count (its presets are fp32)
+    launches.update(scalar)
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     order = ("name", "route", "source", "replaces", "launches",

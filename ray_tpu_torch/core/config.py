@@ -20,8 +20,8 @@ The rows are those of the reference's table (``ray_tpu/core/config.py``)
 that port code reads, under the same ``RTPU_*`` variables, so one
 environment configures both packages; ``gpus`` takes the place of the
 TPU rows. The rows of the parts the port has not taken over yet (the
-cluster, the compiled DAGs, the Train gang, serve's router) come with
-the code that reads them.
+cluster, the compiled DAGs, serve's router) come with the code that
+reads them.
 """
 
 from __future__ import annotations
@@ -136,6 +136,22 @@ _FLAGS: List[Flag] = [
          "Byte budget for the driver's lineage table (serialized task "
          "descriptions kept for object reconstruction); oldest entries "
          "are evicted past it (reference: max_lineage_bytes)."),
+    # ---- train / elastic gangs -------------------------------------------
+    Flag("elastic_grow_cooldown_s", float, 3.0,
+         "Minimum spacing between attempts to grow an elastic training "
+         "gang back toward its target world size. Each attempt probes "
+         "for capacity by creating one replacement worker; the cooldown "
+         "keeps a capacity-starved cluster from paying a probe (and a "
+         "failed placement) every step."),
+    Flag("elastic_grow_probe_timeout_s", float, 10.0,
+         "How long a grow attempt waits for the probe worker to come up "
+         "in its placement bundle before concluding capacity has not "
+         "returned (the probe actor is killed and the gang stays at its "
+         "current size)."),
+    Flag("train_pg_ready_timeout_s", float, 60.0,
+         "How long WorkerGroup.start waits for the gang's placement "
+         "group before failing with PlacementGroupError; the error "
+         "names the first bundle the node cannot satisfy."),
     # ---- serve / overload ------------------------------------------------
     Flag("serve_disagg", bool, False,
          "Prefill/decode disaggregation for paged engine replicas: long "

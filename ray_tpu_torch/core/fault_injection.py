@@ -59,6 +59,17 @@ site           key                      actions
                                         the worker thread inside the
                                         replica process, so in-process
                                         ``inject`` works
+``gang_resize``  batch index (decimal)  ``kill`` — SIGKILL the
+                                        highest-rank training worker
+                                        right after the matching result
+                                        batch is harvested (abrupt
+                                        preemption); ``sigterm`` —
+                                        deliver SIGTERM instead, giving
+                                        the worker its checkpoint grace
+                                        window (scheduled preemption).
+                                        Fires driver-side inside
+                                        BackendExecutor, so in-process
+                                        ``inject`` works
 =============  =======================  ==================================
 
 Env/config surface: ``RTPU_FAULT_<SITE>=<action>[:<times>[:<match>]]``
@@ -75,7 +86,7 @@ for tests that want to mutate state between calls rather than arm a
 site.
 
 The reference's sites of parts the port has not taken over yet (the
-GCS, the Train gang, serve's router, the job agent) come with them.
+GCS, serve's router, the job agent) come with them.
 """
 
 from __future__ import annotations
@@ -88,7 +99,7 @@ from typing import Dict, List, Optional
 from ray_tpu_torch.util.debug_lock import make_lock
 
 SITES = ("get", "spill", "dispatch", "task", "actor_call",
-         "actor_worker_kill", "prefill_handoff")
+         "actor_worker_kill", "prefill_handoff", "gang_resize")
 
 _lock = make_lock("fault_injection._lock")
 _specs: Dict[str, List[dict]] = {}

@@ -1995,9 +1995,14 @@ class Runtime:
                 # Fair division: divide the queue across the whole pool
                 # (busy workers rejoin soon), so one early-finishing worker
                 # cannot swallow work the others would run in parallel.
+                # The pool counts the workers actors took and the runtime
+                # owes back (_pool_deficit): tasks that rendezvous by
+                # polling (host collectives) never block, and batched onto
+                # one worker of a pool that actors drained they would wait
+                # on each other forever.
                 pool = sum(1 for x in self._workers.values()
                            if x.alive and x.actor_id is None
-                           and x.env_key is None) or 1
+                           and x.env_key is None) + self._pool_deficit or 1
                 cap = max(1, min(
                     self.MAX_DISPATCH_BATCH,
                     -(-len(self._task_queue) // pool),

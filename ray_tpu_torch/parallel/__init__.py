@@ -7,9 +7,11 @@ torch.distributed (counterpart of ``ray_tpu/parallel``).
 - device_collectives: psum, all_gather, reduce_scatter, all_to_all,
   ring_permute ... over named mesh axes, differentiable
 - pipeline: the GPipe schedule as one SPMD program
+- collective: host-level out-of-band collective groups across actors
+  (the ``host`` backend on the port's runtime; ``torch`` over the default
+  process group)
 
-``parallel/collective.py`` (host-level groups across actors) waits for
-the port's own actor runtime.
+Importing this package loads no torch (``device_collectives`` does).
 """
 
 from ray_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -35,3 +37,4 @@ from ray_tpu_torch.parallel.sharding import (  # noqa: F401
     shard_pytree_like,
     with_logical_constraint,
 )
+from ray_tpu_torch.parallel import collective  # noqa: F401,E402

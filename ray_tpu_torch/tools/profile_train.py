@@ -90,13 +90,16 @@ def _vocab_op_us(prof, names, vocab: int) -> float:
     return total
 
 
-def build_train_run(device=None, model: str = "llama3_8b"):
+def build_train_run(device=None, model: str = "llama3_8b", cfg=None,
+                    batch: int = None, seq: int = None):
     """(cfg, params, optimizer, tokens) of a ``RUNS`` entry: the params
     require grad and the optimizer holds them; tokens are
-    ``[batch, seq + 1]``."""
+    ``[batch, seq + 1]``. ``cfg``, ``batch`` and ``seq`` replace the
+    entry's (a rehearsal on the CPU passes small ones)."""
     dev = llama.resolve_device(device)
-    _, batch, seq = RUNS[model]
-    cfg = train_config(model)
+    _, run_batch, run_seq = RUNS[model]
+    batch, seq = batch or run_batch, seq or run_seq
+    cfg = cfg or train_config(model)
     params = llama.init_params(cfg, seed=0, device=dev)
     leaves = [p.requires_grad_() for _, p in llama.param_leaves(params)]
     opt = torch.optim.AdamW(leaves, lr=3e-4, weight_decay=0.01)
@@ -105,12 +108,15 @@ def build_train_run(device=None, model: str = "llama3_8b"):
     return cfg, params, opt, toks
 
 
-def train_step(cfg, params, opt, toks) -> torch.Tensor:
-    """One step: ``loss_fn`` -> ``backward`` -> ``opt.step()``. Returns
-    the loss (not synchronised)."""
+def train_step(cfg, params, opt, toks, reduce_grads=None) -> torch.Tensor:
+    """One step: ``loss_fn`` -> ``backward`` -> ``reduce_grads(opt)``
+    when given (a data-parallel gang averages the gradients there) ->
+    ``opt.step()``. Returns the loss (not synchronised)."""
     opt.zero_grad(set_to_none=True)
     loss = llama.loss_fn(cfg, params, {"tokens": toks})
     loss.backward()
+    if reduce_grads is not None:
+        reduce_grads(opt)
     opt.step()
     return loss
 
