@@ -56,7 +56,8 @@ Phases, each printing what it finds; any failure exits non-zero:
    the dense engine, then the paged engine (with a prefix-cache hit),
    each answer 8 requests with 32 tokens; the launch counters show
    their kernels ran, every flash launch on the wgmma route; TTFT and
-   ITL medians.
+   ITL medians. The dense engine then answers a 700-token prompt
+   through its overflow bucket (1023, a ragged flash length).
 4. fp32, 2 layers, batch 2 x seq 256, at full Llama-3-8B width and then
    full Gemma-7B width (head dim 256): the loss and
    every gradient leaf through the flash kernels match the reference
@@ -157,7 +158,9 @@ Phases, each printing what it finds; any failure exits non-zero:
    TTFT and ITL p50/p99 beside 9(b)'s and how many transcripts equal
    9(b)'s (bf16 disaggregated transcripts differ between runs: the two
    workers race for q7, whose worker may hold q1's pages in its staging
-   cache); q1's pages exported from one ``mesh={tp 1}`` paged engine
+   cache), and for each that differs the token where it parts and the
+   decode chunk that produced it in both runs (``serve_latency.py``'s
+   chunk log); q1's pages exported from one ``mesh={tp 1}`` paged engine
    and imported into another, where q7 hits them (128 tokens) and
    decodes the exporter's q7 tokens.
 14. the port's own runtime (``ray_tpu_torch.init``) on the card. (a)
@@ -219,6 +222,38 @@ Phases, each printing what it finds; any failure exits non-zero:
    ``train_offline`` of BC on the card from a JSON sample-batch file
    gives the losses of direct updates on the same batches. The card's
    free memory is back after ``shutdown()``.
+17. the serving plane (``ray_tpu_torch.serve``) and compiled DAGs on the
+   card, the runtime started afresh. (a) ``serve.run`` of the paged
+   engine (``engine=True``, ``num_gpus=1``) at Llama-3-8B bf16, 32
+   layers, phase 3's seed-0 weights drawn on the replica's card: phase
+   3's 8 requests through ``handle.remote``, then one prompt again
+   unary, through ``handle.stream`` and through the HTTP proxy (unary
+   and SSE), whose tokens must all be equal; in the replica the paged
+   kernel once a layer a decode step, merges equal to splits, every
+   flash launch wgmma, no page leaked, the shared prefix hit, the kernel
+   library loaded and not rebuilt; TTFT and ITL p50/p99 beside phases 3
+   and 14, and how many transcripts equal phase 3's (printed only:
+   requests one router call apart batch differently). (b) the dense
+   engine at fp32, Llama-3-8B width, 2 layers, from a ``num_gpus=1``
+   replica: the router's tokens equal 9(a)'s paged tokens for 8/8
+   requests, every prefill flash launch (two a batch) on the 3xTF32
+   route. (e) that deployment with ``serve_request_replay`` on: its
+   replica is SIGKILLed after a stream's first chunk, the controller
+   starts another on the freed card and the router resumes the stream,
+   whose spliced tokens equal an unkilled run's; the time to recover.
+   (c) one ``num_gpus=1`` actor with two bound methods compiled with
+   ``device="auto"``: the K and V of one 8B request (2 x [32, 8, 512,
+   128] bf16, 64 MiB) cross a ``DeviceChannel`` as the same CUDA
+   tensors (``data_ptr``) with their values; with ``device="off"`` they
+   ride shm and arrive as CPU tensors with equal bits; us a hop of each,
+   GB/s of the shm hop, and a small value's round trip through
+   ``dag.execute`` beside an actor call. (d) ``LLMPipeline`` (DAG mode)
+   at Llama-3-8B bf16 with its generate stage on a ``num_gpus=1`` actor:
+   each reply equals the same stage run in the driver on the same seed-0
+   weights, token for token, and the stage launches the wgmma flash
+   forward once a layer a request; ms a request. (f) after
+   ``serve.shutdown()`` and ``shutdown()`` the card's free memory is back
+   within 1 GiB. The phase prints its seconds.
 
 Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward, dQ and
 dK/dV launch took the 3xTF32 kernels.
@@ -231,8 +266,9 @@ Llama and Gemma runs; the d-128 wgmma rows add phase 11's sharded
 runs and phase 13's training, losses and predictor, phase 15's gang
 worker and phase 16's gang worker and predictor actor, the d-128
 forward and G-4 paged rows phase 12's and phase 14's engines, the G-4
-paged row phase 13's; the scalar bf16 rows phase 8's, 0 there: the tiny
-presets are fp32);
+paged row phase 13's, phase 17's replicas and generate stage the d-128
+wgmma and 3xTF32 forward and the G-4 paged rows; the scalar bf16 rows
+phase 8's, 0 there: the tiny presets are fp32);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -1689,6 +1725,14 @@ def serve_8b_requests(vocab_size: int) -> tuple:
             [("q7", prompts[7])])
 
 
+def serve_8b_overflow(vocab_size: int) -> list:
+    """Phase 3's ninth prompt (seed 13, 700 tokens), served by the dense
+    engine alone after the 8: longer than the last listed bucket, so it
+    takes the overflow bucket ``max_len - 1``."""
+    rng = np.random.default_rng(13)
+    return [int(t) for t in rng.integers(1, vocab_size, 700)]
+
+
 def serve_8b_phase(dev) -> tuple:
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.llm_engine import LLMEngine
@@ -1713,10 +1757,30 @@ def serve_8b_phase(dev) -> tuple:
         out = drain(eng, first, 300)
         out.update(drain(eng, last, 120))
         wall = time.perf_counter() - t1
+        over_fwd = 0
+        if name == "dense":
+            # a prompt past the last listed bucket (512) takes the dense
+            # engine's overflow bucket, max_len - 1 = 1023: the flash
+            # forward at a length that is no multiple of its tiles. Its
+            # launches join the kernel line, not ``launches``, which
+            # later phases compare with their own 8 requests'
+            fwd8 = counters()["fwd"]
+            over = drain(eng, [("over", serve_8b_overflow(cfg.vocab_size))],
+                         120)["over"]["tokens"]
+            over_fwd = counters()["fwd"] - fwd8
+            check(len(over) == 32
+                  and all(0 <= t < cfg.vocab_size for t in over),
+                  f"dense: the 700-token prompt (bucket 1023) gave {over}")
+            check(over_fwd == cfg.num_layers,
+                  f"dense: the 700-token prompt's prefill launched the "
+                  f"flash forward {over_fwd} times, want {cfg.num_layers}")
+            print(f"  8B dense: a 700-token prompt through the overflow "
+                  f"bucket 1023 gave {len(over)} tokens, {over_fwd} flash "
+                  f"launches", flush=True)
         st = eng.stats()
         stop(eng)
         n = counters()
-        launches = (n["fwd"], n["paged"])
+        launches = (n["fwd"] - over_fwd, n["paged"])
         check(n["paged_merge"] == n["paged"],
               f"{name}: {n['paged']} paged split launches but "
               f"{n['paged_merge']} merges")
@@ -1743,7 +1807,8 @@ def serve_8b_phase(dev) -> tuple:
             check(st["prefix_hit_tokens"] >= 128,
                   "the shared 128-token prefix did not hit the cache")
         result[name] = {"tokens": {r: v["tokens"] for r, v in out.items()},
-                        "launches": launches, "lat": _latency_ms(out)}
+                        "launches": launches, "lat": _latency_ms(out),
+                        "overflow_fwd": over_fwd}
     check(result["dense"]["launches"][0] > 0,
           "dense engine never launched the flash kernel")
     check(result["paged"]["launches"][1] > 0,
@@ -1752,7 +1817,8 @@ def serve_8b_phase(dev) -> tuple:
                for r in result["dense"]["tokens"])
     print(f"  8B bf16: dense and paged transcripts identical for {same}/8 "
           f"requests (not required in bf16)", flush=True)
-    return ({"flash_attention_fwd": result["dense"]["launches"][0],
+    return ({"flash_attention_fwd": result["dense"]["launches"][0]
+             + result["dense"]["overflow_fwd"],
              "paged_attention": result["paged"]["launches"][1]}, result)
 
 
@@ -2128,6 +2194,7 @@ def disagg_serve_phase(dev) -> dict:
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.serve.disagg import DisaggPagedEngine
     from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+    from ray_tpu_torch.tools.serve_latency import _log_chunks
 
     cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
                                       param_dtype=torch.bfloat16)
@@ -2155,6 +2222,8 @@ def disagg_serve_phase(dev) -> dict:
             check(all(s is not None and s != torch.cuda.default_stream(dev)
                       for s in streams) and streams[0] != streams[1],
                   "prefill workers do not run on streams of their own")
+        # each decode chunk's steps and active requests, for 13(c)
+        chunks = _log_chunks(eng)
         torch.cuda.synchronize()
         pool_mib = (torch.cuda.memory_allocated() - before) / 2**20
         t1 = time.perf_counter()
@@ -2197,6 +2266,7 @@ def disagg_serve_phase(dev) -> dict:
                   f"and staging-cache hit tokens per request: "
                   f"{_prefill_log_line(log)}", flush=True)
         result[name] = {"tokens": {r: v["tokens"] for r, v in out.items()},
+                        "chunks": chunks,
                         "latency_ms": lat, "paged": n["paged"],
                         "engine_mib": pool_mib,
                         "staging_hit": st.get("disagg_staging_hit_tokens"),
@@ -3081,6 +3151,7 @@ def tp_disagg_phase(dev, phase9a: dict, phase9b: dict) -> dict:
     from ray_tpu_torch.parallel import init_process_group
     from ray_tpu_torch.serve.disagg import DisaggPagedEngine
     from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+    from ray_tpu_torch.tools.serve_latency import _log_chunks, _parting
 
     paged = 0
     with tempfile.TemporaryDirectory() as store:
@@ -3123,6 +3194,7 @@ def tp_disagg_phase(dev, phase9a: dict, phase9b: dict) -> dict:
                       page_size=64)
             counters_reset()
             eng = DisaggPagedEngine(params=params, **dict(SERVE_8B, **dkw))
+            chunks = _log_chunks(eng)
             out = drain(eng, first, 300)
             out.update(drain(eng, last, 120))
             st = eng.stats()
@@ -3152,6 +3224,14 @@ def tp_disagg_phase(dev, phase9a: dict, phase9b: dict) -> dict:
                   f"p50/p99 {lat['itl_p50']:.3f}/{lat['itl_p99']:.3f} ms "
                   f"(9(b) {ref['itl_p50']:.3f}/{ref['itl_p99']:.3f}); "
                   f"paged launches {c['paged']}", flush=True)
+            # where each other transcript parts from 9(b)'s, and the
+            # decode chunk that produced that token in each run
+            got = {"tokens": {r: v["tokens"] for r, v in out.items()},
+                   "chunks": chunks}
+            for r in sorted(out):
+                if out[r]["tokens"] != want["tokens"][r]:
+                    print(f"  8B bf16 disagg mesh={{tp 1}}: "
+                          f"{_parting(want, got, r)}", flush=True)
             # export from one mesh={tp 1} engine, import into another
             counters_reset()
             src = PagedLLMEngine(**kw)
@@ -3487,6 +3567,8 @@ def runtime_phase(dev, phase3: dict) -> dict:
                 check(st["prefix_hit_tokens"] >= 128,
                       "the shared 128-token prefix did not hit the cache")
             lat, ref_lat = _latency_ms(out), want["lat"]
+            if kind == "paged" and hold:
+                PHASE14_LAT.update(lat)
             note = ("" if hold else
                     " (each request enters as its call arrives; tokens "
                     "printed, not required)")
@@ -4187,6 +4269,501 @@ def data_phase(dev, phase5: dict, gang: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 17
+
+# phase 14's paged TTFT and ITL (the wave held until flush), for 17(a)
+PHASE14_LAT: dict = {}
+# 17(c): one Llama-3-8B request's KV, K and V: [layers, KV heads, tokens,
+# head dim] in bf16 (2 x 32 x 8 x 512 x 128 x 2 B = 64 MiB)
+LANE_KV_SHAPE = (32, 8, 512, 128)
+# 17(c): hops timed per channel kind, and small-value round trips
+LANE_HOPS, LANE_RTT_CALLS = 20, 200
+# 17(d): the pipeline's model, new tokens a request, and requests timed
+DAG_MODEL_CONFIG = {"preset": "llama3_8b", "dtype": "bfloat16",
+                    "param_dtype": "bfloat16"}
+DAG_MAX_NEW, DAG_REQUESTS = 16, 5
+# phase 17's object store: the shm hop's three 136 MiB channels fit
+SERVE_STORE_BYTES = 1 << 30
+
+
+def _served_engine(kind: str):
+    """Phase 17's replica body: the port's paged (``kind="paged"``) or
+    dense engine, reporting its process's kernel launches, its prefill
+    batches and decode steps, its page pool and its pid. Made in a
+    function, so the class is pickled by value into the replica."""
+    from ray_tpu_torch.serve.llm_engine import LLMEngine
+    from ray_tpu_torch.serve.paged_engine import PagedLLMEngine
+
+    base = PagedLLMEngine if kind == "paged" else LLMEngine
+
+    class Served(base):
+        def __init__(self, **kw):
+            from ray_tpu_torch.ops import _build
+
+            counters_reset()
+            super().__init__(**kw)
+            self.runs = _counted(self)
+            self.built_s = _build.last_build_seconds
+
+        def launches(self) -> dict:
+            return dict(counters(), **self.runs)
+
+        def pool(self) -> tuple:
+            a = self._alloc
+            return len(a.free), len(a.lru), a.num_pages
+
+        def info(self) -> dict:
+            cuda = self._device.type == "cuda"
+            return {"pid": os.getpid(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "name": (torch.cuda.get_device_name(0) if cuda
+                             else "cpu"),
+                    "built_s": self.built_s}
+
+    return Served
+
+
+def _served_counted_pipeline():
+    """17(d)'s deployment: ``LLMPipeline`` whose generate stage also
+    reports its process's kernel launches. The stage list is
+    ``LLMPipeline``'s own; only its generate class is a subclass with a
+    ``launches`` method."""
+    from ray_tpu_torch.serve import dag_mode
+
+    class CountedGenerate(dag_mode._Generate):
+        def launches(self) -> dict:
+            return counters()
+
+    class CountedPipeline(dag_mode.LLMPipeline):
+        def __init__(self, **kw):
+            plain, dag_mode._Generate = dag_mode._Generate, CountedGenerate
+            try:
+                super().__init__(**kw)
+            finally:
+                dag_mode._Generate = plain
+
+        def generate_launches(self) -> dict:
+            import ray_tpu_torch
+
+            return ray_tpu_torch.get(self._actors[1].launches.remote(),
+                                     timeout=60)
+
+    return CountedPipeline
+
+
+def _lane_actor():
+    """17(c)'s actor: K and V of one Llama-3-8B request on its card, a
+    producer method that hands them on, and a consumer that reports
+    whether it got the same tensors (``data_ptr``), their values, where
+    they lie and how long the hop took (one process, one clock)."""
+
+    class Lane:
+        def __init__(self, shape):
+            from ray_tpu_torch.models import llama
+
+            dev = llama.resolve_device(None if torch.cuda.is_available()
+                                       else "cpu")
+            g = torch.Generator(device=dev).manual_seed(17)
+            self.kv = tuple(torch.randn(shape, generator=g, device=dev,
+                                        dtype=torch.float32).to(
+                                            torch.bfloat16)
+                            for _ in range(2))
+            self.host = tuple(t.cpu().view(torch.int16) for t in self.kv)
+            self.t_made = 0.0
+
+        def make(self, i):
+            self.t_made = time.perf_counter()
+            return self.kv
+
+        def take(self, kv):
+            hop = time.perf_counter() - self.t_made
+            same = all(a.data_ptr() == b.data_ptr()
+                       for a, b in zip(kv, self.kv))
+            equal = all(torch.equal(a.cpu().view(torch.int16), h)
+                        for a, h in zip(kv, self.host))
+            return same, equal, kv[0].device.type, hop
+
+        def step(self, x):
+            return x
+
+    return Lane
+
+
+def _route_wave(handle, reqs, timeout_s: float) -> tuple:
+    """Each request through ``handle.remote`` at once; returns the
+    engine's results and, per request, the client's wall time from the
+    call to the result."""
+    t0 = {}
+    futs = {}
+    for rid, prompt in reqs:
+        t0[rid] = time.perf_counter()
+        futs[rid] = handle.remote(prompt)
+    out, wall = {}, {}
+    for rid, fut in futs.items():
+        out[rid] = fut.result(timeout=timeout_s)
+        wall[rid] = time.perf_counter() - t0[rid]
+    return out, wall
+
+
+def _sse_tokens(port: int, name: str, prompt: list) -> tuple:
+    import urllib.request
+
+    def post(body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/{name}", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=300)
+
+    unary = json.loads(post({"args": [prompt]}).read())["result"]["tokens"]
+    events = []
+    with post({"args": [prompt], "stream": True}) as resp:
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                body = line[len("data: "):]
+                if body == "[DONE]":
+                    break
+                events.append(json.loads(body))
+    return unary, [t for e in events for t in e["tokens"]]
+
+
+def serve_plane_phase(dev, phase3: dict, phase9a: dict) -> dict:
+    """17: the serving plane (``ray_tpu_torch.serve``) and compiled DAGs
+    on the card, the runtime started afresh. (a) Llama-3-8B bf16 through
+    ``serve.run`` from a ``num_gpus=1`` paged replica: phase 3's
+    requests, a stream and the HTTP proxy (unary and SSE); (b) the fp32
+    2-layer dense replica against 9(a)'s tokens; (c) the DAG device lane
+    against shm; (d) DAG mode (``LLMPipeline``) at full width; (e) a
+    replica SIGKILLed mid-stream; (f) the card's memory given back.
+    Returns its kernel launches. On the CPU (a rehearsal, with
+    ``LlamaConfig.llama3_8b`` patched small in the driver and in the
+    replicas' ``model_config``) every replica runs there."""
+    import signal as _signal
+    from dataclasses import replace
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.config import config
+    from ray_tpu_torch.dag import (InputNode, bind, compile_dag,
+                                   compile_pipeline)
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve import http_proxy
+    from ray_tpu_torch.serve.dag_mode import _Generate, _Tokenize
+
+    cuda = dev.type == "cuda"
+    gpus = 1 if cuda else 0
+    device = None if cuda else "cpu"   # the replicas' own default: the card
+    t_phase = time.perf_counter()
+    cfg = llama.LlamaConfig.llama3_8b(dtype=torch.bfloat16,
+                                      param_dtype=torch.bfloat16)
+    layers = cfg.num_layers
+    first, last = serve_8b_requests(cfg.vocab_size)
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    rt.init(num_workers=2, object_store_memory=SERVE_STORE_BYTES)
+    launches = {"flash_attention_fwd": 0, "paged_attention": 0,
+                "flash_attention_fwd_tf32x3_d128": 0}
+    try:
+        # (a) Llama-3-8B bf16, 32 layers, paged, from a GPU replica
+        t1 = time.perf_counter()
+        kw = dict(SERVE_8B, page_size=64, device=device)
+        handle = serve.run(
+            serve.deployment(name="llama8b", engine=True, num_gpus=gpus)(
+                _served_engine("paged")).bind(**kw), timeout=900)
+        info = handle.info.remote().result(timeout=60)
+        ready_s = time.perf_counter() - t1
+        if cuda:
+            check(info["visible"] is not None
+                  and len(info["visible"].split(",")) == 1,
+                  f"17(a): the replica's worker sees "
+                  f"CUDA_VISIBLE_DEVICES={info['visible']!r}")
+        check(info["built_s"] == 0.0,
+              f"17(a): the replica rebuilt the kernels "
+              f"({info['built_s']:.1f} s)")
+        t1 = time.perf_counter()
+        out, wall = _route_wave(handle, first, 300)
+        more, wall2 = _route_wave(handle, last, 120)
+        out.update(more)
+        wall.update(wall2)
+        wave_s = time.perf_counter() - t1
+        for rid, res in out.items():
+            check(len(res["tokens"]) == 32,
+                  f"17(a) {rid}: {len(res['tokens'])} tokens, want 32")
+        same3 = sum(out[r]["tokens"] == phase3["paged"]["tokens"][r]
+                    for r in out)
+        # one prompt again: unary, streamed, and through the proxy (unary
+        # and SSE), each alone in the engine with the same cached prefix
+        prompt = first[0][1]
+        unary = handle.remote(prompt).result(timeout=120)["tokens"]
+        t1 = time.perf_counter()
+        chunks, first_chunk_s = [], None
+        for c in handle.stream(prompt):
+            if first_chunk_s is None:
+                first_chunk_s = time.perf_counter() - t1
+            chunks.append(c)
+        streamed = [t for c in chunks for t in c]
+        proxy = http_proxy.start_http(port=0)
+        try:
+            http_unary, sse = _sse_tokens(proxy.address[1], "llama8b",
+                                          prompt)
+        finally:
+            http_proxy.stop_http()
+        check(streamed == unary and len(chunks) >= 2,
+              f"17(a): {len(chunks)} streamed chunks, tokens equal to the "
+              f"unary result: {streamed == unary}")
+        check(http_unary == unary and sse == unary,
+              f"17(a): HTTP unary equal {http_unary == unary}, SSE equal "
+              f"{sse == unary} to the unary result")
+        st = handle.stats.remote().result(timeout=60)
+        n = handle.launches.remote().result(timeout=60)
+        free, cached, pages = handle.pool.remote().result(timeout=60)
+        check(free + cached == pages,
+              f"17(a): {free} free + {cached} cached pages of {pages}: "
+              f"pages leaked")
+        check(st["prefix_hit_tokens"] >= 128,
+              "17(a): the shared 128-token prefix did not hit the cache")
+        check(n["paged"] == layers * n["decode_steps"]
+              and n["paged"] > 0 and n["paged_merge"] == n["paged"],
+              f"17(a): paged launches {n['paged']} (merges "
+              f"{n['paged_merge']}), want {layers} a decode step x "
+              f"{n['decode_steps']}")
+        check(n["fwd_sm90"] == n["fwd"],
+              f"17(a): {n['fwd_sm90']} of {n['fwd']} flash launches took "
+              f"the wgmma kernel")
+        lat, ref3 = _latency_ms(out), phase3["paged"]["lat"]
+        ref14 = PHASE14_LAT
+        over = [(wall[r] - out[r]["latency_s"]) * 1e3 for r in out]
+        print(f"  (a) Llama-3-8B bf16 paged replica (num_gpus=1, "
+              f"CUDA_VISIBLE_DEVICES={info['visible']!r}, {info['name']}) "
+              f"ready in {ready_s:.2f} s; phase 3's 8 requests through "
+              f"handle.remote in {wave_s:.2f} s: tokens equal phase 3's "
+              f"for {same3}/8 (printed, not required in bf16); TTFT p50 "
+              f"{lat['ttft_p50']:.2f} ms p99 {lat['ttft_p99']:.2f} ms "
+              f"(phase 3 {ref3['ttft_p50']:.2f} / {ref3['ttft_p99']:.2f}, "
+              f"phase 14 {ref14.get('ttft_p50', float('nan')):.2f} / "
+              f"{ref14.get('ttft_p99', float('nan')):.2f}); ITL p50 "
+              f"{lat['itl_p50']:.3f} ms p99 {lat['itl_p99']:.3f} ms "
+              f"(phase 3 {ref3['itl_p50']:.3f} / {ref3['itl_p99']:.3f}, "
+              f"phase 14 {ref14.get('itl_p50', float('nan')):.3f} / "
+              f"{ref14.get('itl_p99', float('nan')):.3f}); client wall "
+              f"less engine latency p50 "
+              f"{statistics.median(over):.2f} ms", flush=True)
+        print(f"  (a) one prompt again: unary, {len(chunks)} streamed "
+              f"chunks (first after {first_chunk_s * 1e3:.1f} ms), HTTP "
+              f"unary and SSE: equal tokens; paged launches {n['paged']} "
+              f"= {layers} x {n['decode_steps']} decode steps, merges "
+              f"{n['paged_merge']}; flash launches {n['fwd']} (wgmma "
+              f"{n['fwd_sm90']}); prefix hit tokens "
+              f"{st['prefix_hit_tokens']}; pages {free} free + {cached} "
+              f"cached of {pages}", flush=True)
+        launches["flash_attention_fwd"] += n["fwd_sm90"]
+        launches["paged_attention"] += n["paged"]
+        serve.delete("llama8b")
+
+        # (b) fp32 Llama-3-8B width, 2 layers: the dense replica's
+        # tokens against 9(a)'s paged tokens (3xTF32 prefill)
+        cfg32 = replace(llama.LlamaConfig.llama3_8b(), num_layers=2,
+                        dtype=torch.float32, param_dtype=torch.float32)
+        kw32 = dict(SERVE_8B, model_config=_model_config(cfg32),
+                    device=device)
+        t1 = time.perf_counter()
+        handle = serve.run(
+            serve.deployment(name="llama8b_fp32", engine=True,
+                             num_gpus=gpus)(
+                _served_engine("dense")).bind(**kw32), timeout=900)
+        ready32_s = time.perf_counter() - t1
+        out, _ = _route_wave(handle, first, 300)
+        more, _ = _route_wave(handle, last, 120)
+        out.update(more)
+        got = {r: v["tokens"] for r, v in out.items()}
+        same9 = sum(got[r] == phase9a[r] for r in got)
+        n = handle.launches.remote().result(timeout=60)
+        check(same9 == len(phase9a),
+              f"17(b): fp32 router tokens equal 9(a)'s for {same9}/"
+              f"{len(phase9a)} requests")
+        check(n["fwd"] == 2 * n["prefill_batches"] and n["fwd"] > 0
+              and n["fwd_tf32x3"] == n["fwd"],
+              f"17(b): flash launches {n['fwd']} (3xTF32 "
+              f"{n['fwd_tf32x3']}), want 2 a prefill batch x "
+              f"{n['prefill_batches']}")
+        print(f"  (b) fp32 2-layer dense replica ready in {ready32_s:.2f} "
+              f"s: router tokens equal 9(a)'s paged tokens for "
+              f"{same9}/{len(phase9a)} requests; flash launches {n['fwd']} "
+              f"(3xTF32 {n['fwd_tf32x3']}, {n['prefill_batches']} prefill "
+              f"batches)", flush=True)
+        launches["flash_attention_fwd_tf32x3_d128"] += n["fwd_tf32x3"]
+
+        # (e) the same deployment with request replay: its replica is
+        # SIGKILLed after a stream's first chunk; the controller starts
+        # another on the freed card and the router resumes the stream
+        os.environ["RTPU_SERVE_REQUEST_REPLAY"] = "1"
+        os.environ["RTPU_SERVE_REPLICA_WAIT_S"] = "300"
+        config.reload()
+        try:
+            # the budget is explicit, so that the resumed request's
+            # shrinks by the tokens already delivered
+            prompt, budget = first[1][1], SERVE_8B["max_new_tokens"]
+            unkilled = handle.remote(prompt, budget).result(
+                timeout=120)["tokens"]
+            victim = handle.info.remote().result(timeout=60)["pid"]
+            gen = handle.stream(prompt, budget)
+            spliced = list(next(gen))
+            n_first = len(spliced)
+            os.kill(victim, _signal.SIGKILL)
+            t_kill = time.perf_counter()
+            recover_s = None
+            for c in gen:
+                if recover_s is None:
+                    recover_s = time.perf_counter() - t_kill
+                spliced += c
+            after = handle.info.remote().result(timeout=60)
+        finally:
+            os.environ.pop("RTPU_SERVE_REQUEST_REPLAY", None)
+            os.environ.pop("RTPU_SERVE_REPLICA_WAIT_S", None)
+            config.reload()
+        check(spliced == unkilled,
+              f"17(e): the spliced stream differs from the unkilled run:"
+              f"\n{spliced}\n{unkilled}")
+        check(after["pid"] != victim,
+              "17(e): the replica was not replaced")
+        if cuda:
+            check(after["visible"] == info["visible"],
+                  f"17(e): the replacement sees {after['visible']!r}")
+        n = handle.launches.remote().result(timeout=60)
+        launches["flash_attention_fwd_tf32x3_d128"] += n["fwd_tf32x3"]
+        print(f"  (e) replica (pid {victim}) SIGKILLed after the stream's "
+              f"first chunk ({n_first} tokens): the replacement (pid "
+              f"{after['pid']}, "
+              f"CUDA_VISIBLE_DEVICES={after['visible']!r}) resumed it "
+              f"{recover_s:.2f} s after the kill; spliced tokens equal the "
+              f"unkilled run's ({len(spliced)} tokens)", flush=True)
+        serve.delete("llama8b_fp32")
+
+        # (c) the DAG device lane: K and V of one 8B request between two
+        # methods of one GPU actor, by reference (auto) and over shm (off)
+        Lane = rt.remote(_lane_actor()).options(num_gpus=gpus)
+        lane = Lane.remote(LANE_KV_SHAPE)
+        rt.get(lane.step.remote(0), timeout=300)
+        nbytes = 2 * int(np.prod(LANE_KV_SHAPE)) * 2
+        lane_out = {}
+        for mode, cap in (("auto", 1 << 20), ("off", nbytes + (8 << 20))):
+            with InputNode() as inp:
+                node = bind(lane, "take", bind(lane, "make", inp))
+            dag = compile_dag(node, capacity=cap, device=mode)
+            try:
+                kinds = [type(c).__name__ for c in dag._shm_chans]
+                hops, got = [], None
+                for i in range(LANE_HOPS):
+                    got = dag.execute(i, timeout_ms=120_000)
+                    hops.append(got[3])
+            finally:
+                dag.teardown()
+            lane_out[mode] = (kinds, got, statistics.median(hops))
+        kinds, (same, equal, where, _), hop = lane_out["auto"]
+        want_dev = "cuda" if cuda else "cpu"
+        check(kinds == ["DeviceChannel"] and same and equal
+              and where == want_dev,
+              f"17(c) auto: edge {kinds}, same tensors {same}, values "
+              f"{equal}, on {where}")
+        kinds_off, (same_o, equal_o, where_o, _), hop_off = lane_out["off"]
+        check(kinds_off == ["Channel"] and not same_o and equal_o
+              and where_o == "cpu",
+              f"17(c) off: edge {kinds_off}, same tensors {same_o}, bits "
+              f"{equal_o}, on {where_o}")
+        dag = compile_pipeline([(lane, "step")])
+        try:
+            dag.execute(0)
+            rtt_dag, rtt_actor = [], []
+            for i in range(LANE_RTT_CALLS):
+                t1 = time.perf_counter()
+                dag.execute(i)
+                rtt_dag.append(time.perf_counter() - t1)
+            for i in range(LANE_RTT_CALLS):
+                t1 = time.perf_counter()
+                rt.get(lane.step.remote(i))
+                rtt_actor.append(time.perf_counter() - t1)
+        finally:
+            dag.teardown()
+        rt.kill(lane)
+        print(f"  (c) {nbytes / 2**20:.0f} MiB of K and V (2 x "
+              f"{list(LANE_KV_SHAPE)} bf16) between two methods of one "
+              f"GPU actor: device='auto' compiles {kinds}, the consumer "
+              f"gets the same tensors {same} (data_ptr), equal values "
+              f"{equal}, on {where}, {hop * 1e6:.1f} us a hop (median of "
+              f"{LANE_HOPS}); device='off' compiles {kinds_off}, tensors on "
+              f"{where_o} with equal bits {equal_o}, {hop_off * 1e6:.1f} us "
+              f"a hop ({nbytes / hop_off / 1e9:.2f} GB/s); a small value's "
+              f"round trip: dag.execute p50 "
+              f"{statistics.median(rtt_dag) * 1e6:.1f} us, an actor call "
+              f"p50 {statistics.median(rtt_actor) * 1e6:.1f} us "
+              f"({LANE_RTT_CALLS} calls each)", flush=True)
+
+        # (d) DAG mode: LLMPipeline at Llama-3-8B bf16 width, its generate
+        # stage on a GPU actor, against the same stage in the driver
+        mc = DAG_MODEL_CONFIG
+        t1 = time.perf_counter()
+        handle = serve.run(
+            serve.deployment(name="llm_dag")(_served_counted_pipeline())
+            .bind(model_config=mc, max_new_tokens=DAG_MAX_NEW,
+                  device=device,
+                  generate_options={"num_gpus": gpus} if gpus else None),
+            timeout=900)
+        dag_ready_s = time.perf_counter() - t1
+        text = "the port serves through compiled channels"
+        replies, times = [], []
+        for _ in range(DAG_REQUESTS):
+            t1 = time.perf_counter()
+            replies.append(handle.remote(text).result(timeout=300))
+            times.append(time.perf_counter() - t1)
+        n = handle.generate_launches.remote().result(timeout=60)
+        serve.delete("llm_dag")
+        local = _Generate(mc, DAG_MAX_NEW, device=device)
+        want = " ".join(str(i) for i in local.run(
+            _Tokenize(mc.get("vocab_size", 256)).run(text)))
+        del local
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        check(all(r == want for r in replies),
+              f"17(d): the pipeline's replies differ from the stage run in "
+              f"the driver:\n{replies[0]}\n{want}")
+        check(n["fwd"] == layers * DAG_REQUESTS and n["fwd_sm90"] == n["fwd"],
+              f"17(d): the generate stage's flash launches {n['fwd']} "
+              f"(wgmma {n['fwd_sm90']}), want {layers} a request x "
+              f"{DAG_REQUESTS}")
+        print(f"  (d) LLMPipeline, Llama-3-8B bf16, generate stage on a "
+              f"num_gpus=1 actor: ready in {dag_ready_s:.2f} s; "
+              f"{DAG_REQUESTS} replies of {DAG_MAX_NEW} tokens equal the "
+              f"stage run in the driver, token for token; "
+              f"{statistics.median(times) * 1e3:.2f} ms a request (p50); "
+              f"flash launches {n['fwd']} (wgmma {n['fwd_sm90']})",
+              flush=True)
+        launches["flash_attention_fwd"] += n["fwd_sm90"]
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    if cuda:
+        # (f) every replica and stage actor is gone, its context with it
+        deadline = time.monotonic() + 60
+        while True:
+            free = torch.cuda.mem_get_info()[0]
+            if free >= free0 - (1 << 30) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(free >= free0 - (1 << 30),
+              f"17(f): after shutdown() the card has {free / 2**30:.2f} GiB "
+              f"free, {free0 / 2**30:.2f} before")
+        print(f"  (f) after serve.shutdown() and shutdown(): "
+              f"{free / 2**30:.2f} GiB free on the card, "
+              f"{free0 / 2**30:.2f} before", flush=True)
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -4291,6 +4868,11 @@ def main() -> None:
           "predictions over a Dataset on a GPU actor pool, offline BC",
           flush=True)
     data = data_phase(dev, train, gang_step)
+    print("phase 17: the serving plane and compiled DAGs on the card: "
+          "Llama-3-8B bf16 through serve.run from a num_gpus=1 replica, "
+          "fp32 2 layers against 9(a), the DAG device lane, DAG mode, a "
+          "replica SIGKILLed mid-stream", flush=True)
+    served = serve_plane_phase(dev, phase3, disagg_fp32)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama
@@ -4323,8 +4905,10 @@ def main() -> None:
     # kernels (its run, its losses, the predictor) and the paged kernel,
     # phase 14's GPU actor the serving kernels again
     # and phase 15's gang worker the training kernels, phase 16's gang
-    # worker and predictor actor the d-128 flash kernels
-    for part in (tp_serve, ckpt, tp_disagg, runtime, gang, data):
+    # worker and predictor actor the d-128 flash kernels, phase 17's
+    # replicas and generate stage the d-128 forward (wgmma and 3xTF32)
+    # and the G-4 paged kernel
+    for part in (tp_serve, ckpt, tp_disagg, runtime, gang, data, served):
         for name, n in part.items():
             launches[name] += n
     # the scalar kernels' rows: phase 8's count (its presets are fp32)

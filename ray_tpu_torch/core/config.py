@@ -89,6 +89,24 @@ _FLAGS: List[Flag] = [
          "How long wait_for_workers waits for the pool to come up."),
     Flag("worker_shutdown_grace_s", float, 2.0,
          "Grace period for workers to exit at shutdown before SIGKILL."),
+    # ---- compiled dags ---------------------------------------------------
+    Flag("dag_compile_actor_wait_s", float, 5.0,
+         "compile_dag deadline for a bound actor to finish registering "
+         "with the cluster (actor creation is async; the DAG compiler "
+         "races it). Lookup failures past the deadline name the actor."),
+    Flag("dag_device_channels", str, "auto",
+         "On-device DAG edges: 'auto' uses a DeviceChannel (torch "
+         "tensors handed off by reference, doorbell-only shm) for edges "
+         "between stages of the same GPU actor process, falling back to "
+         "shm channels elsewhere; 'off' forces shm everywhere; 'force' "
+         "uses device edges for any same-process edge, GPU or not "
+         "(tests exercise the handoff on the CPU)."),
+    Flag("dag_spin_us", int, 50,
+         "Busy-poll budget in microseconds for compiled-DAG channel "
+         "waits before falling back to the condvar (0 = pure block). "
+         "The spin loop yields the CPU each poll round, so the default "
+         "is safe on 1-core hosts; raise toward ~200 on multi-core "
+         "hosts where the peer runs truly in parallel."),
     # ---- observability ---------------------------------------------------
     Flag("log_to_driver", bool, True,
          "Stream worker stdout/stderr lines to the driver's stderr with "
@@ -153,15 +171,99 @@ _FLAGS: List[Flag] = [
          "group before failing with PlacementGroupError; the error "
          "names the first bundle the node cannot satisfy."),
     # ---- serve / overload ------------------------------------------------
+    Flag("serve_affinity_load_penalty", float, 64.0,
+         "Cache-affinity load discount: estimated matched-prefix tokens "
+         "a replica's score loses per router-local in-flight request on "
+         "it. Higher values make affinity defer to load balance sooner "
+         "(a replica must hold that many MORE cached prefix tokens to "
+         "beat a one-request-lighter peer); 0 routes to the best cache "
+         "holder regardless of load."),
+    Flag("serve_affinity_min_prefix_tokens", int, 16,
+         "Minimum estimated matched-prefix tokens before cache-affinity "
+         "routing overrides power-of-two choices. Below this, the "
+         "prefill saved is too small to justify skewing load — the "
+         "request routes blind. Must be at least one page to ever "
+         "match (prefix fingerprints cover full pages only)."),
+    Flag("serve_cache_affinity", bool, False,
+         "Prefix-cache-aware routing: engine replicas publish a bounded "
+         "digest of their cached KV prefix fingerprints; the router "
+         "scores candidates by estimated matched-prefix tokens minus a "
+         "load penalty (serve_affinity_load_penalty) and routes to the "
+         "best holder when the match clears "
+         "serve_affinity_min_prefix_tokens. Off (default) keeps the "
+         "seed power-of-two router byte-identical — no digest polling, "
+         "no extra RNG draws."),
+    Flag("serve_dag_spin_us", int, -1,
+         "Busy-poll budget for serve dag_mode pipelines (the replica->"
+         "engine hot path compiled onto DAG channels); -1 inherits "
+         "dag_spin_us, 0 forces pure-block channels for serve only."),
     Flag("serve_disagg", bool, False,
          "Prefill/decode disaggregation for paged engine replicas: long "
          "prompts divert to dedicated prefill workers whose finished KV "
          "pages are adopted by the decode engine as cached prefixes. "
          "serve.disagg.engine_class() resolves the flag."),
+    Flag("serve_eject_ttft_ratio", float, 3.0,
+         "Gray-replica detection bar (serve_replica_ejection on): a "
+         "replica whose TTFT EWMA exceeds this multiple of the median "
+         "of its peers' EWMAs (after a minimum observation count) is "
+         "ejected from the router's pick set until the hysteresis "
+         "cooldown expires or the controller replaces it."),
+    Flag("serve_max_queue_depth", int, 0,
+         "Default per-deployment admission cap: router-local requests in "
+         "flight (admitted, not yet completed) beyond which new requests "
+         "are shed with BackpressureError, lowest priority class first "
+         "(low sheds at 1/3 of the cap, normal at 2/3, high at the full "
+         "cap). 0 = unbounded — admission is a no-op, exactly the "
+         "pre-QoS behavior. Per-deployment 'max_queue_depth' config "
+         "overrides this default."),
     Flag("serve_prefill_workers", int, 1,
          "Dedicated prefill workers per disaggregated engine: each owns "
          "a private staging KV pool of the engine's geometry and "
          "prefills diverted prompts on its own CUDA stream."),
+    Flag("serve_replay_max_attempts", int, 3,
+         "Total dispatch attempts per request under serve_request_replay "
+         "(first try + replays). Every replay re-picks a replica via the "
+         "affinity scorer; an exhausted budget surfaces "
+         "ReplicaUnavailableError carrying the attempt count and the "
+         "last cause."),
+    Flag("serve_replica_ejection", bool, False,
+         "Gray-replica ejection: the router scores per-replica health "
+         "(TTFT EWMA outlier vs the deployment median, consecutive "
+         "dispatch-failure streak, engine-poll staleness) and stops "
+         "picking ejected replicas; routers report ejections with their "
+         "load reports and the controller probes and replaces "
+         "persistently gray replicas (reports that stop refreshing "
+         "restore the replica instead). Off (default) keeps the pick "
+         "path byte-identical to the seed pow-2 router."),
+    Flag("serve_replica_wait_s", float, 30.0,
+         "How long the router waits for a running replica to appear "
+         "before failing the request with ReplicaUnavailableError "
+         "(deployment deleted, never deployed, or all replicas down)."),
+    Flag("serve_request_replay", bool, False,
+         "Durable request replay: every unary/batch/call_method request "
+         "carries a dedup nonce recorded in the router's request "
+         "ledger; on replica death or call timeout the router re-picks "
+         "(affinity-aware) and replays up to serve_replay_max_attempts, "
+         "with replica-side nonce dedup collapsing at-least-once "
+         "execution to exactly-once results. Also enables mid-stream "
+         "resume: an engine token stream that loses its replica "
+         "resubmits prompt + delivered tokens to the best affinity "
+         "candidate and splices at the delivered-token watermark. Off "
+         "(default) keeps the seed 3-attempt retry loops and the wire "
+         "payloads byte-identical."),
+    Flag("serve_shutdown_grace_s", float, 15.0,
+         "How long serve controller shutdown waits for backgrounded "
+         "replica stops (graceful_shutdown + kill) to finish before "
+         "returning; past it, stop threads are abandoned."),
+    Flag("serve_ttft_ewma_alpha", float, 0.3,
+         "Smoothing factor for the router's per-replica TTFT EWMA (the "
+         "admission-control wait estimator): higher reacts faster to "
+         "load shifts, lower resists outliers."),
+    Flag("serve_worker_poll_deadline_s", float, 12.0,
+         "In-worker routers drain the controller long-poll ref with "
+         "non-blocking probes for at most this long before re-arming "
+         "(a blocking get would head-of-line block the replica's "
+         "serialized owner connection)."),
     # ---- workers and memory ----------------------------------------------
     Flag("memory_monitor_enabled", bool, True,
          "Kill workers under node memory pressure instead of letting the "

@@ -70,6 +70,42 @@ site           key                      actions
                                         Fires driver-side inside
                                         BackendExecutor, so in-process
                                         ``inject`` works
+``serve_overload``  deployment name     ``shed`` — the serve router's
+                                        admission check rejects the
+                                        matching request with
+                                        BackpressureError as if the
+                                        deployment were saturated
+                                        (deterministic overload: the
+                                        typed-shed path fires without
+                                        needing real queue pressure).
+                                        Fires in the router (driver or
+                                        proxy process), so in-process
+                                        ``inject`` works
+``serve_replica_kill``  "<deployment>:<replica id>"  ``die`` — the serve
+                                        router observes a synthetic
+                                        ActorDiedError for the replica
+                                        it just picked BEFORE the call
+                                        dispatches (a lost request: the
+                                        replay must re-pick and re-
+                                        execute); ``die_after`` — the
+                                        call executes on the replica,
+                                        then the router discards the
+                                        result and observes the death
+                                        (a lost reply: the replay must
+                                        be absorbed by replica-side
+                                        nonce dedup for exactly-once).
+                                        Fires in the router's process,
+                                        so in-process ``inject`` works
+``stream_resume``  deployment name      ``drop`` — an engine token
+                                        stream observes replica death
+                                        right after delivering its next
+                                        chunk, forcing the mid-stream
+                                        resume path (serve_request_
+                                        replay): re-pick, resubmit
+                                        prompt + delivered tokens,
+                                        splice at the watermark. Fires
+                                        in the router's process, so
+                                        in-process ``inject`` works
 =============  =======================  ==================================
 
 Env/config surface: ``RTPU_FAULT_<SITE>=<action>[:<times>[:<match>]]``
@@ -86,7 +122,7 @@ for tests that want to mutate state between calls rather than arm a
 site.
 
 The reference's sites of parts the port has not taken over yet (the
-GCS, serve's router, the job agent) come with them.
+GCS, the job agent) come with them.
 """
 
 from __future__ import annotations
@@ -99,7 +135,8 @@ from typing import Dict, List, Optional
 from ray_tpu_torch.util.debug_lock import make_lock
 
 SITES = ("get", "spill", "dispatch", "task", "actor_call",
-         "actor_worker_kill", "prefill_handoff", "gang_resize")
+         "actor_worker_kill", "prefill_handoff", "gang_resize",
+         "serve_overload", "serve_replica_kill", "stream_resume")
 
 _lock = make_lock("fault_injection._lock")
 _specs: Dict[str, List[dict]] = {}

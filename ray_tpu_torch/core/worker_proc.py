@@ -424,17 +424,107 @@ class WorkerCore:
                     RuntimeError(repr(exc)), traceback.format_exc())),
                 store=None)
 
+    def _dag_start(self, instance, in_descs, out_descs, method: str) -> str:
+        """Start a compiled-DAG resident loop: read ALL input channels (in
+        edge order), invoke the bound method with those values, write the
+        result to EVERY output channel. Errors are forwarded as ('e', exc)
+        markers so downstream stages pass them through and the driver
+        re-raises (reference: compiled DAG error propagation). Each
+        channel is shm, or a DeviceChannel between two stages of this
+        actor. Every stage runs its loop in a thread of its own, so two
+        stages of one actor may run on other CUDA streams: the device
+        lane orders them with an event (``dag/channel.py``)."""
+        import threading
+
+        from ray_tpu_torch.dag.channel import ChannelClosed, open_endpoint
+
+        fn = getattr(instance, method)
+
+        def loop():
+            import sys
+            import traceback as tb
+
+            ins: list = []
+            outs: list = []
+            try:
+                # append one by one: a failure partway must not orphan
+                # the endpoints already opened
+                for d in in_descs:
+                    ins.append(open_endpoint(d, store=self.store))
+                for d in out_descs:
+                    outs.append(open_endpoint(d, store=self.store))
+            except Exception as e:  # noqa: BLE001
+                # a real setup failure must not present as a silent hang:
+                # log it, and try to push the error downstream so the
+                # driver's first execute raises instead of timing out
+                tb.print_exc(file=sys.stderr)
+                err = RuntimeError(
+                    f"DAG stage {method!r} failed to open its channels: "
+                    f"{e!r}")
+                for d in out_descs:
+                    try:
+                        outch = open_endpoint(d, store=self.store)
+                        outch.write(("e", err), timeout_ms=5000)
+                        outs.append(outch)
+                    # rtpu-lint: disable=L4 — best-effort error fan-out:
+                    # a downstream peer that is itself dead cannot be
+                    # told; the remaining descriptors still get the error
+                    except Exception:  # noqa: BLE001 — peer gone too
+                        pass
+                for ch in ins + outs:
+                    ch.release()
+                return
+            try:
+                while True:
+                    vals = []
+                    err = None
+                    try:
+                        for inch in ins:
+                            tag, value = inch.read(timeout_ms=-1)
+                            if tag == "e" and err is None:
+                                err = value
+                            vals.append(value)
+                    except ChannelClosed:
+                        for outch in outs:
+                            outch.close()
+                        return
+                    except Exception:  # noqa: BLE001 — store torn down
+                        return
+                    if err is not None:
+                        out = ("e", err)
+                    else:
+                        try:
+                            out = ("v", fn(*vals))
+                        except BaseException as e:  # noqa: BLE001
+                            out = ("e", e)
+                    # infinite timeout to MATCH the infinite reads: with a
+                    # pipelined call in flight, a slow downstream stage
+                    # (LLM decode) can legitimately hold the ack >10s
+                    for outch in outs:
+                        outch.write(out, timeout_ms=-1)
+            finally:
+                for ch in ins + outs:
+                    ch.release()
+
+        threading.Thread(target=loop, daemon=True,
+                         name=f"dag-{method}").start()
+        return "ok"
+
     @staticmethod
-    def _dag_unported(*_args):
-        """The compiled-DAG entry points (``__rtpu_dag_start__``, the
-        resident stage loop, and ``__rtpu_dag_devinfo__``, the device
-        placement probe) run ``ray_tpu``'s ``dag/channel.py``, whose
-        device lane carries JAX arrays. They are refused until the port's
-        DAG lane exists (ROADMAP.md §1, item 2: the device lane and the
-        DAG pipeline)."""
-        raise NotImplementedError(
-            "compiled DAGs are not ported yet: the port's DAG lane "
-            "(ROADMAP.md section 1, item 2) carries them")
+    def _dag_devinfo() -> tuple:
+        """(pid, is_gpu) for the __rtpu_dag_devinfo__ compile probe. GPU
+        detection is env-first (the runtime names a GPU actor's cards in
+        ``RTPU_GPU_IDS``), then whether this process already initialised
+        CUDA, read only when torch is already loaded: the probe never
+        imports torch or initialises CUDA in a CPU worker."""
+        import os as _os
+        import sys as _sys
+
+        is_gpu = bool(_os.environ.get("RTPU_GPU_IDS"))
+        torch = _sys.modules.get("torch")
+        if not is_gpu and torch is not None:
+            is_gpu = bool(torch.cuda.is_initialized())
+        return (_os.getpid(), is_gpu)
 
     def _send_results(self, task_id_b: bytes, result, num_returns: int,
                       return_id_bytes: List[bytes]):
@@ -781,8 +871,17 @@ class WorkerCore:
         self.current_actor_id = ActorID(actor_id_b)
         try:
             instance = self._actors[actor_id_b]
-            if method in ("__rtpu_dag_start__", "__rtpu_dag_devinfo__"):
-                fn = self._dag_unported
+            if method == "__rtpu_dag_start__":
+                # compiled-DAG resident loop (ray_tpu_torch/dag): not a
+                # method of the user class — the worker hosts the loop
+                # thread
+                fn = lambda in_d, out_d, m: self._dag_start(  # noqa: E731
+                    instance, in_d, out_d, m)
+            elif method == "__rtpu_dag_devinfo__":
+                # compile-time placement probe: (pid, is_gpu). Device
+                # edges require both stages in ONE process (tensors pass
+                # by reference), so the compiler compares pids.
+                fn = self._dag_devinfo
             else:
                 fn = getattr(instance, method)
             args, kwargs = self._decode_args(args_payload, inline_values)

@@ -13,9 +13,9 @@ selecting the kept rows first: ``active``/``valid`` masks are read on
 the host (pass them as numpy or CPU tensors to keep a step free of host
 syncs) and position overflows write the old value back.
 
-Prefill attention takes the flash kernel (ops/attention.py) when the
-tensors are on CUDA and the bucket is a multiple of 128, else the
-reference path, as ``_prefill_attention`` routes in the reference.
+Prefill attention takes the flash forward kernel (ops/attention.py) when
+the tensors are on CUDA, at any bucket length; the reference takes it at
+multiples of 128 only (``_prefill_attention``).
 
 Tensor-parallel serving (``make_engine_fns(mesh=)``, ``init_cache(mesh=)``)
 is the reference's Megatron split run as explicit SPMD: every rank of
@@ -43,7 +43,7 @@ from ray_tpu_torch.models.llama import (LlamaConfig, _sharded_embed,
                                         host_array,
                                         layer_params, param_shardings,
                                         resolve_device, to_device)
-from ray_tpu_torch.ops.attention import attention_reference, flash_attention
+from ray_tpu_torch.ops.attention import attention_reference, flash_forward
 from ray_tpu_torch.ops.layers import (apply_rope, rms_norm, rope_frequencies,
                                       swiglu)
 from ray_tpu_torch.parallel import device_collectives as dc
@@ -210,14 +210,19 @@ def _head(cfg: LlamaConfig, params, x, spmd=None):
 
 
 def _prefill_attention(cfg: LlamaConfig, q, k, v):
-    """Causal prefill attention: the flash kernel when ``prefill_flash``
-    allows it (None = the tensors are on CUDA) and the sequence is a
-    multiple of 128; any other length takes the reference path."""
+    """Causal prefill attention: the flash forward kernel when
+    ``prefill_flash`` allows it (None = the tensors are on CUDA), at any
+    length. Prefill needs no gradient, so this calls ``flash_forward``,
+    whose kernels mask ragged tiles themselves; ``flash_attention`` keeps
+    the reference's rule that lengths divide its blocks. The reference's
+    Pallas kernel needs a multiple of its 128 block and takes the
+    reference path at other lengths (DAG mode's 32-token prefill, the
+    engine's overflow bucket)."""
     use_flash = cfg.prefill_flash
     if use_flash is None:
         use_flash = q.is_cuda
-    if use_flash and q.shape[1] % 128 == 0:
-        return flash_attention(q, k, v, causal=True)
+    if use_flash:
+        return flash_forward(q, k, v, causal=True)[0]
     return attention_reference(q, k, v, causal=True)
 
 

@@ -157,6 +157,16 @@ class DisaggPagedEngine(PagedLLMEngine):
 
     # ---- prefill workers -------------------------------------------------
 
+    def _init_programs(self):
+        super()._init_programs()
+        # the work queued so far on this thread's stream (the weights and
+        # the pool, drawn, loaded or placed there): every prefill stream
+        # waits for this event first, since it does not follow that stream
+        self._built = None
+        if self._device.type == "cuda":
+            self._built = torch.cuda.Event()
+            self._built.record(torch.cuda.current_stream(self._device))
+
     def _spawn_worker(self, widx: int):
         th = threading.Thread(target=self._worker_loop, args=(widx,),
                               daemon=True, name=f"prefill-worker-{widx}")
@@ -171,11 +181,14 @@ class DisaggPagedEngine(PagedLLMEngine):
     def _make_worker_state(self) -> dict:
         """The worker's own stream (on the card), staging pool and
         allocator; the pool is allocated on that stream (under tp, this
-        rank's shard of it)."""
+        rank's shard of it). The stream first waits for ``_built``: a
+        prefill on it must not read weights whose writes are still
+        queued on another stream."""
         stream = None
         if self._device.type == "cuda":
             torch.cuda.set_device(self._device)
             stream = torch.cuda.Stream(self._device)
+            stream.wait_event(self._built)
         with torch.cuda.stream(stream):
             cache = llama_paged.init_paged_cache(
                 self._cfg, self._alloc.num_pages, self._page_size,

@@ -30,7 +30,16 @@ at world size 1), all on the same inputs, and prints for each
 ``mesh={tp 1}`` run which requests' transcripts equal the first run's,
 and for each request the prefill worker that took it and the tokens its
 staging cache already held (``DisaggPagedEngine.prefill_log()``). bf16
-transcripts of that engine differ between runs; this reproduces it.
+transcripts of that engine differ between runs; this reproduces it. Each
+run also logs every decode chunk it dispatches (its steps and, for each
+active request, the position its first step writes); for each request
+whose transcript parts from the no-mesh run's, the tool prints the token
+where they part and the chunk that produced it in both runs (its steps,
+its active requests and the token's step within it), or "prefill" for
+the first token, and counts the partings whose two chunks had the same
+composition. A parting in a chunk of the same composition would be a
+run-to-run difference of the port itself; one where the compositions
+differ is the bf16 rounding of a decode batch of other rows.
 
 Needs one card; imports nothing of JAX.
 """
@@ -58,13 +67,64 @@ def _chip_smoke():
     return mod
 
 
+def _log_chunks(eng) -> list:
+    """Record each decode chunk ``eng`` dispatches: its steps ``k`` and,
+    for each active request, the position its first step writes and the
+    request's prompt length (read on the engine thread at dispatch)."""
+    import numpy as np
+
+    log = []
+    run_chunk = eng._run_chunk
+
+    def logged(act, k, *a):
+        log.append({"k": int(k), "reqs": {
+            eng._slot_req[s]: (eng._slot_pos[s], eng._slot_plen[s])
+            for s in np.nonzero(act)[0].tolist()}})
+        return run_chunk(act, k, *a)
+    eng._run_chunk = logged
+    return log
+
+
+def _producer(chunks: list, req: str, t: int):
+    """The chunk that produced token ``t`` (t >= 1: token 0 comes from
+    the prefill) of ``req``, and the token's step within it."""
+    for c in chunks:
+        if req in c["reqs"]:
+            pos, plen = c["reqs"][req]
+            first = pos - plen + 1
+            if first <= t < first + c["k"]:
+                return c, t - first
+    return None, None
+
+
+def _parting(want: dict, got: dict, q: str) -> dict:
+    """Where request ``q``'s transcript in run ``got`` parts from
+    ``want``'s, and the chunks that produced that token in each."""
+    a, b = want["tokens"][q], got["tokens"][q]
+    t = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+             min(len(a), len(b)))
+    if t == 0:
+        return {"req": q, "token": 0, "where": "prefill", "same": None}
+    ca, sa = _producer(want["chunks"], q, t)
+    cb, sb = _producer(got["chunks"], q, t)
+
+    def shape(c, step):
+        return None if c is None else {"k": c["k"], "step": step,
+                                       "active": sorted(c["reqs"])}
+
+    wa, wb = shape(ca, sa), shape(cb, sb)
+    return {"req": q, "token": t, "where": "decode", "want": wa,
+            "got": wb, "same": wa is not None and wa == wb}
+
+
 def _run(cs, make, first, last) -> dict:
     """One run on a fresh engine: the numbers of its 8 requests, and
-    the engine's transcripts and prefill log."""
+    the engine's transcripts, prefill log and decode-chunk log."""
     import numpy as np
     import torch
 
     eng = make()
+    chunks = _log_chunks(eng)
     if hasattr(eng, "_wstates"):
         deadline = time.monotonic() + 30
         while len(eng._wstates) < 2 and time.monotonic() < deadline:
@@ -88,7 +148,7 @@ def _run(cs, make, first, last) -> dict:
             "latency_p99": float(np.percentile(lat, 99)),
             "steps": st["steps"],
             "tokens": {r: v["tokens"] for r, v in out.items()},
-            "prefill_log": log}
+            "prefill_log": log, "chunks": chunks}
 
 
 def _line(what: str, rep: str, r: dict) -> str:
@@ -135,6 +195,7 @@ def latency(cs, dev, reps: int) -> list:
                 print(_line(f"{model} {name}", tag, r), flush=True)
                 r.pop("tokens")
                 r.pop("prefill_log")
+                r.pop("chunks")
                 rows.append({"model": model, "engine": name, "rep": rep,
                              **r})
         del params, kw, engines, make
@@ -168,6 +229,7 @@ def disagg_repeats(cs, dev, n: int) -> list:
           f"{want['ttft_p50']:.2f} ms", flush=True)
     rows = []
     agree = dict.fromkeys(want["tokens"], 0)
+    partings = []
     with tempfile.TemporaryDirectory() as store:
         init_process_group(0, 1, dev, store_path=os.path.join(store, "pg"))
         try:
@@ -179,20 +241,36 @@ def disagg_repeats(cs, dev, n: int) -> list:
                               if r["tokens"][q] == want["tokens"][q])
                 for q in same:
                     agree[q] += 1
+                parts = [_parting(want, r, q) for q in sorted(want["tokens"])
+                         if q not in same]
+                partings += parts
                 print(f"mesh={{tp 1}} run {rep + 1}/{n}: equal to the "
                       f"no-mesh run {' '.join(same)} ({len(same)}/8); "
                       f"prefill worker/hit tokens "
                       f"{log_line(r['prefill_log'])}; TTFT p50 "
                       f"{r['ttft_p50']:.2f} ms", flush=True)
+                for p in parts:
+                    print(f"  {p['req']} parts at token {p['token']}: "
+                          + ("prefill" if p["where"] == "prefill" else
+                             f"no-mesh chunk {p['want']}, this run's "
+                             f"{p['got']}, same composition {p['same']}"),
+                          flush=True)
                 rows.append({"rep": rep + 1, "equal": same,
                              "prefill_log": {q: list(v) for q, v in
-                                             r["prefill_log"].items()}})
+                                             r["prefill_log"].items()},
+                             "partings": parts})
         finally:
             import torch.distributed as dist
 
             dist.destroy_process_group()
     print(f"runs agreeing with the no-mesh run per request over {n}: "
           f"{' '.join(f'{q}:{k}' for q, k in sorted(agree.items()))}",
+          flush=True)
+    decode = [p for p in partings if p["where"] == "decode"]
+    print(f"partings: {len(partings)}, {len(partings) - len(decode)} at "
+          f"the prefill's token; of the {len(decode)} in decode, "
+          f"{sum(bool(p['same']) for p in decode)} in a chunk of the same "
+          f"composition (steps, active requests, step) in both runs",
           flush=True)
     return rows
 

@@ -98,7 +98,7 @@ def test_prefill_matches_reference(variant):
 
 
 def test_prefill_flash_route_matches_reference():
-    """``prefill_flash=True`` at a 128-multiple takes ``flash_attention``
+    """``prefill_flash=True`` at a 128-multiple takes ``flash_forward``
     (its plain version on CPU tensors): the same function."""
     jcfg, _ = _configs("base")
     tcfg = tl.LlamaConfig.tiny(prefill_flash=True)
@@ -110,6 +110,31 @@ def test_prefill_flash_route_matches_reference():
     np.testing.assert_allclose(_np(logits), _np(want_logits), atol=2e-5,
                                rtol=2e-5)
     np.testing.assert_allclose(_np(kv["v"]), _np(want_kv["v"]), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("length", [32, 100, 255, 1023])
+def test_prefill_flash_route_at_a_ragged_length(monkeypatch, length):
+    """``prefill_flash=True`` at a length that is no multiple of 128 (DAG
+    mode's 32-token prefill; the dense engine's overflow bucket
+    ``max_len - 1``, 255 at the default 256 and 1023 at 1024) takes
+    ``flash_forward`` too, whose kernels take any length; the reference
+    takes its attention path there. The same function either way."""
+    jcfg, _ = _configs("base")
+    tcfg = tl.LlamaConfig.tiny(prefill_flash=True)
+    jparams, tparams = _params(jcfg)
+    calls = []
+    flash = td.flash_forward
+    monkeypatch.setattr(td, "flash_forward",
+                        lambda *a, **kw: calls.append(1) or flash(*a, **kw))
+    toks = np.random.default_rng(4).integers(1, 256, (1, length)).astype(
+        np.int32)
+    want_logits, want_kv, _ = jd.prefill(jcfg, jparams, jnp.asarray(toks))
+    logits, kv, _ = td.prefill(tcfg, tparams, torch.from_numpy(toks))
+    assert len(calls) == tcfg.num_layers
+    np.testing.assert_allclose(_np(logits), _np(want_logits), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(_np(kv["k"]), _np(want_kv["k"]), atol=2e-5,
                                rtol=2e-5)
 
 

@@ -699,8 +699,9 @@ def test_every_flag_row_has_a_reader():
 
 
 def test_refusals_name_their_slice(pkgs):
-    """Cluster mode, the thin client and the compiled-DAG entry points
-    are refused with NotImplementedError until their slices land."""
+    """Cluster mode, the thin client and the compiled DAGs' socket
+    channels (cross-node edges) are refused with NotImplementedError
+    until their slice lands; the compiled-DAG entry points run."""
     from ray_tpu_torch.core import runtime_context
 
     code = ("import ray_tpu_torch as rt\n"
@@ -724,10 +725,13 @@ def test_refusals_name_their_slice(pkgs):
     a = Stage.remote()
     assert ray_tpu_torch.get(a.ping.remote()) == "pong"
     core = runtime_context.get_core()
-    for method in ("__rtpu_dag_devinfo__", "__rtpu_dag_start__"):
-        ref = core.submit_actor_task(a.actor_id, method, (), {}, 1)[0]
-        with pytest.raises(ray_tpu_torch.exceptions.TaskError) as ei:
-            ray_tpu_torch.get(ref, timeout=30)
-        assert isinstance(ei.value.cause, NotImplementedError)
+    ref = core.submit_actor_task(a.actor_id, "__rtpu_dag_devinfo__", (), {},
+                                 1)[0]
+    pid, is_gpu = ray_tpu_torch.get(ref, timeout=30)
+    assert pid != os.getpid() and is_gpu is False
+    from ray_tpu_torch.dag.channel import open_endpoint
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        open_endpoint(("sock", "0123", "127.0.0.1"))
     assert ray_tpu_torch.get(a.ping.remote()) == "pong"
     ray_tpu_torch.kill(a)
