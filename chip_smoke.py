@@ -254,6 +254,34 @@ Phases, each printing what it finds; any failure exits non-zero:
    forward once a layer a request; ms a request. (f) after
    ``serve.shutdown()`` and ``shutdown()`` the card's free memory is back
    within 1 GiB. The phase prints its seconds.
+18. Data's readers and Tune on the card, the runtime started afresh
+   with a 1 GiB store. (a) phase 7's GPT-2 tokens (8 x 1025, numpy seed
+   0) as int64 byte records through ``Dataset.write_tfrecords``, a tar of
+   ``.tokens`` members, a sqlite table of (step, row, blob) and a
+   deflate Avro file written by a small encoder here, each read back
+   through ``read_tfrecords`` / ``read_webdataset`` / ``read_sql`` /
+   ``read_avro`` and ``map_batches`` equal to the source bit for bit;
+   the MB/s of a 256 MiB ``read_tfrecords`` pass (printed only). This
+   machine has neither pyarrow, PIL nor pandas: the image, HuggingFace,
+   Delta, Iceberg and BigQuery readers run in the CPU tests. (b) a
+   ``Tuner`` sweep of GPT-2 125M (params from seed 0, AdamW(lr, weight
+   decay 0.01)) over lr 3e-4, 1e-3, 3e-3, 1e-1 under ASHA (max_t 12,
+   grace 3, reduction 2), one ``num_gpus=1`` trial actor at a time, each
+   step's 8 rows read by ``read_tfrecords(...).iter_torch_batches()`` on
+   the trial's card from a file whose steps 0-4 are phase 7's batch and
+   5-11 rows of numpy seed 1: the lr 3e-4 trial's first five losses equal
+   phase 7's bit for bit, ASHA stops a trial before max_t, every trial
+   ends, the trials' launches are the d-64 wgmma kernels' (2 x 12
+   forward, 12 dQ, 12 dK/dV a step); each trial's losses, the rung it
+   stopped at, its actor's ready time and step time. (c) the lr 3e-4
+   trial with ``max_failures=1``: params and AdamW state saved through
+   ``dist_checkpoint`` and reported at step 3, its actor ends with
+   ``os._exit(1)``, and the retry's steps 4-7, resumed from
+   ``tune.get_checkpoint()``, equal (b)'s losses bit for bit. (d) a
+   ``Tuner`` over a ``TorchTrainer`` (one ``use_gpu`` worker, NCCL) with
+   ``datasets={"train": ds}`` over lr 3e-4 and 1e-3: the lr 3e-4 trial's
+   step-4 loss equals (b)'s. The card's free memory is back after
+   ``shutdown()``; the phase prints its seconds.
 
 Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward, dQ and
 dK/dV launch took the 3xTF32 kernels.
@@ -267,7 +295,8 @@ runs and phase 13's training, losses and predictor, phase 15's gang
 worker and phase 16's gang worker and predictor actor, the d-128
 forward and G-4 paged rows phase 12's and phase 14's engines, the G-4
 paged row phase 13's, phase 17's replicas and generate stage the d-128
-wgmma and 3xTF32 forward and the G-4 paged rows; the scalar bf16 rows
+wgmma and 3xTF32 forward and the G-4 paged rows, phase 18's trial
+actors and gang workers the d-64/128 wgmma rows; the scalar bf16 rows
 phase 8's, 0 there: the tiny presets are fp32);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
@@ -4764,6 +4793,545 @@ def serve_plane_phase(dev, phase3: dict, phase9a: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 18
+
+# 18(b)'s sweep: the learning rates (3e-4 is phase 7's; 1e-1 diverges),
+# ASHA's max_t (the steps a trial may train) and its grace period and
+# reduction factor
+TUNE_LRS = [3e-4, 1e-3, 3e-3, 1e-1]
+TUNE_MAX_T, TUNE_GRACE, TUNE_ETA = 12, 3, 2
+# 18(c): the step after whose checkpoint the trial's actor dies, and the
+# steps the resumed trial trains to
+TUNE_CKPT_AT, TUNE_RESUME_STEPS = 3, 8
+# 18(d): the steps of the gang trials
+TUNE_GANG_STEPS = 5
+# 18(a)'s timed read_tfrecords pass
+READ_BYTES = 256 << 20
+# phase 18's object store (the timed pass's block is in it)
+TUNE_STORE_BYTES = 1 << 30
+# the trials' GPT-2 configuration: None is GPT2Config.gpt2_125m() (a
+# rehearsal on the CPU sets a small one; the trainable carries it)
+TUNE_GPT2_CFG = None
+
+
+def _token_rows(batch: dict, column: str) -> dict:
+    """18's ``map_batches`` decoder: each record of ``column`` is one row
+    of int64 tokens."""
+    return {"tokens": np.stack([np.frombuffer(x, dtype=np.int64)
+                                for x in batch[column]])}
+
+
+def _avro_long(n: int) -> bytes:
+    u = (n << 1) ^ (n >> 63)
+    out = bytearray()
+    while True:
+        if u >> 7:
+            out.append((u & 0x7F) | 0x80)
+            u >>= 7
+        else:
+            out.append(u)
+            return bytes(out)
+
+
+def _write_avro_deflate(path: str, toks) -> None:
+    """An Avro object container file of records {step: long, row: long,
+    tokens: bytes}, one block, deflate codec (the spec's raw deflate)."""
+    import zlib
+
+    schema = {"type": "record", "name": "TokenRow", "fields": [
+        {"name": "step", "type": "long"}, {"name": "row", "type": "long"},
+        {"name": "tokens", "type": "bytes"}]}
+    body = bytearray()
+    for i, r in enumerate(toks):
+        rec = r.tobytes()
+        body += _avro_long(0) + _avro_long(i) + _avro_long(len(rec)) + rec
+    comp = zlib.compressobj(wbits=-15)
+    payload = comp.compress(bytes(body)) + comp.flush()
+    sync = bytes(range(16))
+    meta = {b"avro.schema": json.dumps(schema).encode(),
+            b"avro.codec": b"deflate"}
+    out = bytearray(b"Obj\x01") + _avro_long(len(meta))
+    for k, v in meta.items():
+        out += _avro_long(len(k)) + k + _avro_long(len(v)) + v
+    out += _avro_long(0) + sync
+    out += _avro_long(len(toks)) + _avro_long(len(payload)) + payload + sync
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def _tune_gpt2_trial(config) -> None:
+    """18's trainable: phase 7's GPT-2 run (params from seed 0,
+    AdamW(lr, weight decay 0.01)) on step k's 8 rows of the TFRecords
+    Dataset at ``config["path"]``, read through ``read_tfrecords``,
+    decoded by ``map_batches`` and staged by ``iter_torch_batches`` on
+    the trial's card. Reports the loss every step with the step time,
+    this process's launches, its pid and when the trainable began.
+    Resumes from ``tune.get_checkpoint()`` (params and AdamW state
+    through ``dist_checkpoint``) and then reads on from the step after
+    it. With ``ckpt_at``, reports a checkpoint at that step, and behind
+    the sentinel file ends its actor after that report. Raises without
+    CUDA unless ``config["device"]`` names the CPU (a rehearsal)."""
+    entry = time.time()
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.tools.train_gang import launch_counts
+    from ray_tpu_torch.train import Checkpoint
+
+    imported = time.time()
+    if config.get("device") is None and not torch.cuda.is_available():
+        raise RuntimeError("18: the trial found no CUDA device")
+    dev = torch.device(config.get("device") or
+                       f"cuda:{torch.cuda.current_device()}")
+    cuda = dev.type == "cuda"
+    cfg = TUNE_GPT2_CFG or gpt2.GPT2Config.gpt2_125m()
+    params = gpt2.init_params(cfg, seed=0, device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    drawn = time.time()
+    leaves = llama.param_leaves(params)
+    for _, p in leaves:
+        p.requires_grad_()
+    opt = torch.optim.AdamW([p for _, p in leaves], lr=config["lr"],
+                            weight_decay=0.01)
+    built = time.time()   # a process's first optimizer imports torch._dynamo
+
+    def state(step):
+        st = opt.state
+        return {"params": {n: p.detach() for n, p in leaves},
+                "exp_avg": {n: st[p]["exp_avg"] for n, p in leaves},
+                "exp_avg_sq": {n: st[p]["exp_avg_sq"] for n, p in leaves},
+                "adam_step": {n: st[p]["step"] for n, p in leaves},
+                "step": step}
+
+    start = 0
+    ckpt = tune.get_checkpoint()
+    if ckpt is not None or config.get("ckpt_at") is not None:
+        from ray_tpu_torch.train import dist_checkpoint as dc
+    if ckpt is not None:
+        for _, p in leaves:
+            opt.state[p] = {"step": torch.tensor(0.0),
+                            "exp_avg": torch.zeros_like(p),
+                            "exp_avg_sq": torch.zeros_like(p)}
+        with ckpt.as_directory() as d:
+            start = dc.restore(d, like=state(None))["step"] + 1
+    if cuda:
+        torch.empty(1, pin_memory=True)   # the process's first pinned block
+    pinned = time.time()
+    ds = rdata.read_tfrecords(config["path"]).map_batches(
+        _token_rows, fn_kwargs={"column": "bytes"})
+    it = ds.iter_torch_batches(batch_size=config["batch"],
+                               device=None if cuda else "cpu")
+    try:
+        for step, batch in enumerate(it):
+            if step >= config["steps"]:
+                break
+            if step < start:
+                continue   # the rows of steps trained before the resume
+            if step == start:
+                setup_s = time.time() - entry   # to the first batch
+                parts = (imported - entry, drawn - imported,
+                         built - drawn, pinned - built,
+                         entry + setup_s - pinned)
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = gpt2.loss_fn(cfg, params, {"tokens": batch["tokens"]})
+            loss.backward()
+            opt.step()
+            value = loss.item()
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            saved = None
+            if step == config.get("ckpt_at"):
+                d = os.path.join(tune.get_trial_dir(), f"ckpt_{step}")
+                dc.save(d, state(step))
+                saved = Checkpoint.from_directory(d)
+            tune.report({"loss": value, "step": step, "resumed_at": start,
+                         "step_ms": step_ms, "entry": entry,
+                         "setup_s": setup_s,
+                         "setup_parts": parts,
+                         "t": time.time(), "pid": os.getpid(),
+                         "launches": launch_counts(),
+                         "visible": os.environ.get("CUDA_VISIBLE_DEVICES")},
+                        checkpoint=saved)
+            if saved is not None and not os.path.exists(config["sentinel"]):
+                open(config["sentinel"], "w").close()
+                os._exit(1)
+    finally:
+        it.close()
+
+
+def _tune_gang_loop(config) -> None:
+    """18(d)'s gang worker: 18(b)'s trial in a one-worker gang (the
+    gradients averaged over its NCCL group, as 15(b)), on the gang's
+    Dataset shard (``get_dataset_shard("train")``, 8 rows a step); the
+    trial's config (its lr) merged into the loop's by the Tuner."""
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.tools.train_gang import average_grads, launch_counts
+
+    dev = torch.device(config.get("device") or
+                       f"cuda:{torch.cuda.current_device()}")
+    cuda = dev.type == "cuda"
+    cfg = TUNE_GPT2_CFG or gpt2.GPT2Config.gpt2_125m()
+    params = gpt2.init_params(cfg, seed=0, device=dev)
+    leaves = llama.param_leaves(params)
+    for _, p in leaves:
+        p.requires_grad_()
+    opt = torch.optim.AdamW([p for _, p in leaves], lr=config["lr"],
+                            weight_decay=0.01)
+    it = tr.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["batch"], device=None if cuda else "cpu")
+    try:
+        for step, batch in enumerate(it):
+            if step >= config["steps"]:
+                break
+            opt.zero_grad(set_to_none=True)
+            loss = gpt2.loss_fn(cfg, params, {"tokens": batch["tokens"]})
+            loss.backward()
+            average_grads(opt)
+            opt.step()
+            tr.report({"loss": loss.item(), "step": step,
+                       "launches": launch_counts(), "pid": os.getpid(),
+                       "visible": os.environ.get("CUDA_VISIBLE_DEVICES")})
+    finally:
+        it.close()
+
+
+def _trial_launches(hists) -> dict:
+    """The flash launches of every trial process: each process's last
+    report (its counts are cumulative), summed."""
+    last = {}
+    for hist in hists:
+        for m in hist:
+            last[m["pid"]] = m["launches"]
+    return {k: sum(n[k] for n in last.values())
+            for k in ("fwd", "fwd_sm90", "dq", "dq_sm90", "dkv", "dkv_sm90")}
+
+
+def _check_launches(what: str, n: dict, steps: int, L: int, per: int,
+                    cuda: bool) -> None:
+    want = (per * L * steps, L * steps, L * steps) if cuda else (0, 0, 0)
+    check((n["fwd"], n["dq"], n["dkv"]) == want
+          and (n["fwd_sm90"], n["dq_sm90"], n["dkv_sm90"]) == want,
+          f"{what}: launches {n}, want {want[0]} forward and {want[1]} dQ "
+          f"and dK/dV over {steps} steps, all wgmma")
+
+
+def _add_launches(launches: dict, n: dict) -> None:
+    """A run's wgmma launches into the kernel line's d-64/128 rows."""
+    for k, key in (("flash_attention_fwd", "fwd_sm90"),
+                   ("flash_attention_bwd_dq", "dq_sm90"),
+                   ("flash_attention_bwd_dkv", "dkv_sm90")):
+        launches[k] += n[key]
+
+
+def tune_phase(dev, gpt2_losses: list) -> dict:
+    """18: Data's deferred readers and Tune on the card. (a) phase 7's
+    GPT-2 tokens (8 x 1025, numpy seed 0) as int64 byte records through
+    ``Dataset.write_tfrecords``, a tar of ``.tokens`` members, a sqlite
+    table of (step, row, blob) and a deflate Avro file, each read back
+    through the port's reader and ``map_batches`` equal to the source bit
+    for bit; the MB/s of a 256 MiB ``read_tfrecords`` pass (printed
+    only). (b) a Tuner sweep of GPT-2 125M trials, one ``num_gpus=1``
+    trial actor at a time, over ``TUNE_LRS`` under ASHA (max_t 12, grace
+    3, reduction 2), each fed from a TFRecords Dataset whose steps 0-4 are
+    phase 7's batch and steps 5-11 rows of numpy seed 1: the lr 3e-4
+    trial's first five losses equal phase 7's bit for bit, ASHA stops a
+    trial before max_t, every trial ends, and the card's memory comes
+    back. (c) the lr 3e-4 trial with ``max_failures=1``: a checkpoint at
+    step 3, its actor ends with ``os._exit(1)``, the retry resumes from
+    ``tune.get_checkpoint()`` and its losses for steps 4-7 equal (b)'s
+    bit for bit. (d) a Tuner over a ``TorchTrainer`` (one ``use_gpu``
+    worker, NCCL) with ``datasets={"train": ds}``: the lr 3e-4 trial's
+    final loss (step 4) equals (b)'s. Returns the trial processes'
+    wgmma launches. On the CPU (a rehearsal, with ``TUNE_GPT2_CFG``
+    small and ``RTPU_GPUS=1``) the trials train on the CPU."""
+    import io
+    import shutil
+    import sqlite3
+    import tarfile
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import gpt2
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    cfg = TUNE_GPT2_CFG or gpt2.GPT2Config.gpt2_125m()
+    b, s = GANG_GPT2
+    L, per = cfg.num_layers, 2 if cfg.remat else 1
+    toks7 = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s + 1))
+    fresh = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, ((TUNE_MAX_T - 5) * b, s + 1))
+    rows = np.concatenate([toks7] * 5 + [fresh])
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0}
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    rt.init(num_workers=4, object_store_memory=TUNE_STORE_BYTES)
+    work = tempfile.mkdtemp(prefix="rtpt_tune_")
+    try:
+        # (a) four readers the card's machine can run, bit for bit
+        recs = [r.tobytes() for r in toks7]
+        got = {}
+        rd.from_items([{"bytes": r} for r in recs], parallelism=1) \
+            .write_tfrecords(os.path.join(work, "tfr"))
+        got["tfrecords"] = rd.read_tfrecords(os.path.join(work, "tfr")) \
+            .map_batches(_token_rows, fn_kwargs={"column": "bytes"})
+        tar = os.path.join(work, "shard-000000.tar")
+        with tarfile.open(tar, "w") as f:
+            for i, r in enumerate(recs):
+                info = tarfile.TarInfo(f"row{i:05d}.tokens")
+                info.size = len(r)
+                f.addfile(info, io.BytesIO(r))
+        got["webdataset"] = rd.read_webdataset(tar).map_batches(
+            _token_rows, fn_kwargs={"column": "tokens"})
+        db = os.path.join(work, "tokens.db")
+        conn = sqlite3.connect(db)
+        with conn:   # commits
+            conn.execute("CREATE TABLE t (step INTEGER, row INTEGER, "
+                         "tokens BLOB)")
+            conn.executemany("INSERT INTO t VALUES (?, ?, ?)",
+                             [(0, i, r) for i, r in enumerate(recs)])
+        conn.close()
+        got["sql"] = rd.read_sql(
+            "SELECT step, row, tokens FROM t ORDER BY step, row",
+            lambda: sqlite3.connect(db)).map_batches(
+                _token_rows, fn_kwargs={"column": "tokens"})
+        avro = os.path.join(work, "tokens.avro")
+        _write_avro_deflate(avro, toks7)
+        got["avro"] = rd.read_avro(avro).map_batches(
+            _token_rows, fn_kwargs={"column": "tokens"})
+        for name, ds in got.items():
+            back = np.concatenate([x["tokens"] for x in ds.iter_batches(
+                batch_size=None, prefetch_batches=0)])
+            check(back.dtype == toks7.dtype and np.array_equal(back, toks7),
+                  f"18(a): {name} read back {back.dtype} {back.shape}, not "
+                  f"phase 7's tokens bit for bit")
+        with open(os.path.join(work, "tfr", "part-00000.tfrecords"),
+                  "rb") as f:
+            frames = f.read()
+        reps = READ_BYTES // len(frames)
+        os.makedirs(os.path.join(work, "big"))
+        big = os.path.join(work, "big", "part.tfrecords")
+        with open(big, "wb") as f:
+            for _ in range(reps):
+                f.write(frames)
+        size = os.path.getsize(big)
+        t0 = time.perf_counter()
+        n_recs = sum(len(x["bytes"]) for x in rd.read_tfrecords(big)
+                     .iter_batches(batch_size=None, prefetch_batches=0))
+        read_s = time.perf_counter() - t0
+        check(n_recs == reps * b, f"18(a): the timed pass read {n_recs} "
+                                  f"records, not {reps * b}")
+        print(f"  (a) phase 7's tokens ({b} x {s + 1} int64) through "
+              f"write_tfrecords/read_tfrecords, a webdataset tar, sqlite "
+              f"(read_sql) and a deflate Avro file (read_avro), each with "
+              f"map_batches: equal to the source bit for bit; a "
+              f"{size / 2**20:.0f} MiB read_tfrecords pass ({n_recs} "
+              f"records, one file, the page cache warm) in {read_s:.3f} s: "
+              f"{size / read_s / 1e6:.1f} MB/s (information only); "
+              f"{smi_line() if cuda else 'cpu'}", flush=True)
+        print("  (a) not run here: read_images (needs PIL), "
+              "from_huggingface/read_huggingface, read_delta, read_iceberg "
+              "and read_bigquery (need pyarrow; BigQuery a client too): "
+              "this machine has neither pyarrow, PIL nor pandas; "
+              "tests/test_torch_data.py holds them to ray_tpu.data on the "
+              "CPU", flush=True)
+        del got, frames
+        os.remove(big)
+
+        # (b) the sweep
+        path = os.path.join(work, "steps")
+        rd.from_items([{"bytes": r.tobytes()} for r in rows],
+                      parallelism=1).write_tfrecords(path)
+        ds = rd.read_tfrecords(path).map_batches(
+            _token_rows, fn_kwargs={"column": "bytes"})
+        it = ds.iter_torch_batches(batch_size=b, device=device)
+        first = next(iter(it))["tokens"]
+        it.close()
+        check(np.array_equal(first.cpu().numpy(), toks7),
+              "18(b): the Dataset's first batch is not phase 7's tokens")
+        base = {"path": path, "batch": b, "device": device}
+        wall0, t0 = time.time(), time.perf_counter()
+        grid = tune.Tuner(
+            _tune_gpt2_trial,
+            param_space=dict(base, lr=tune.grid_search(TUNE_LRS),
+                             steps=TUNE_MAX_T),
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min",
+                scheduler=tune.ASHAScheduler(
+                    max_t=TUNE_MAX_T, grace_period=TUNE_GRACE,
+                    reduction_factor=TUNE_ETA),
+                max_concurrent_trials=1, trial_resources={"num_gpus": 1}),
+            run_config=tr.RunConfig(storage_path=work, name="sweep")).fit()
+        sweep_s = time.perf_counter() - t0
+        check(not grid.errors, f"18(b): trials failed: {grid.errors}")
+        trials = grid._trials
+        hists = [t.metric_history for t in trials]
+        prev = wall0
+        for t, hist in zip(trials, hists):
+            losses = [m["loss"] for m in hist]
+            steps_ms = [m["step_ms"] for m in hist]
+            ready_ms = (hist[0]["entry"] - prev) * 1e3 if hist else 0.0
+            prev = hist[-1]["t"] if hist else prev
+            fate = (f"stopped by ASHA at rung {t.iterations}"
+                    if t.iterations < TUNE_MAX_T else "ran to max_t")
+            print(f"  (b) lr {t.config['lr']:g}: {t.status.value} after "
+                  f"{t.iterations} iterations ({fate}), last loss "
+                  f"{losses[-1]:.4f}; losses "
+                  f"{' '.join(f'{x:.4f}' for x in losses)}; trainable "
+                  f"began {ready_ms:.0f} ms after the previous trial's last "
+                  f"report (fit()'s start for the first): the actor's "
+                  f"ready time; its first batch in hand "
+                  f"{hist[0]['setup_s']:.2f} s later (imports, params "
+                  f"on the device, AdamW, the first pinned block (a "
+                  f"checkpoint's restore), the Dataset's first batch: "
+                  f"{' '.join(f'{x:.2f}' for x in hist[0]['setup_parts'])}"
+                  f" s); step "
+                  f"{statistics.median(steps_ms[1:] or steps_ms):.1f} ms "
+                  f"(median after the first, {steps_ms[0]:.1f} ms first); "
+                  f"CUDA_VISIBLE_DEVICES {hist[0]['visible']!r}",
+                  flush=True)
+        best = grid.get_best_result()
+        n = _trial_launches(hists)
+        n_steps = sum(len(h) for h in hists)
+        print(f"  (b) best: lr {best.config['lr']:g} (loss "
+              f"{best.metrics['loss']:.4f}); {n_steps} steps over "
+              f"{len(trials)} trials in {sweep_s:.1f} s; launches in the "
+              f"trials: flash forward {n['fwd']} (wgmma {n['fwd_sm90']}), "
+              f"dQ {n['dq']} (wgmma {n['dq_sm90']}), dK/dV {n['dkv']} "
+              f"(wgmma {n['dkv_sm90']})", flush=True)
+        ref = trials[TUNE_LRS.index(3e-4)]
+        sweep_losses = [m["loss"] for m in ref.metric_history]
+        check(sweep_losses[:5] == gpt2_losses[:5],
+              f"18(b): the lr 3e-4 trial's first losses {sweep_losses[:5]} "
+              f"are not phase 7's {gpt2_losses[:5]} bit for bit")
+        check(all(t.status.value == "TERMINATED" for t in trials),
+              f"18(b): trials did not end: "
+              f"{[t.status.value for t in trials]}")
+        check(any(t.iterations < TUNE_MAX_T for t in trials),
+              f"18(b): ASHA stopped no trial: "
+              f"{[t.iterations for t in trials]}")
+        _check_launches("18(b)", n, n_steps, L, per, cuda)
+        _add_launches(launches, n)
+
+        # (c) the lr 3e-4 trial dies after step 3's checkpoint, resumes
+        sentinel = os.path.join(work, "died")
+        wall0 = time.time()
+        grid = tune.Tuner(
+            _tune_gpt2_trial,
+            param_space=dict(base, lr=3e-4, steps=TUNE_RESUME_STEPS,
+                             ckpt_at=TUNE_CKPT_AT, sentinel=sentinel),
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        trial_resources={"num_gpus": 1}),
+            run_config=tr.RunConfig(
+                storage_path=work, name="resume",
+                failure_config=tr.FailureConfig(max_failures=1))).fit()
+        check(not grid.errors, f"18(c): the trial failed: {grid.errors}")
+        (trial,) = grid._trials
+        hist = trial.metric_history
+        pids = [m["pid"] for m in hist]
+        steps = [m["step"] for m in hist]
+        resumed = [m for m in hist if m["resumed_at"] > 0]
+        got = [m["loss"] for m in resumed]
+        want = sweep_losses[TUNE_CKPT_AT + 1:TUNE_RESUME_STEPS]
+        died_at = hist[TUNE_CKPT_AT]["t"]
+        back_s = resumed[0]["t"] - died_at if resumed else float("nan")
+        print(f"  (c) lr 3e-4 with max_failures=1: steps {steps}, pids "
+              f"{pids}, resumed at {resumed[0]['resumed_at'] if resumed else None}"
+              f"; the retry reported {back_s:.1f} s after the step-"
+              f"{TUNE_CKPT_AT} report its actor died after (its trainable "
+              f"began {resumed[0]['entry'] - died_at if resumed else 0:.1f} "
+              f"s after, its first batch in hand, the checkpoint restored, "
+              f"{resumed[0]['setup_s'] if resumed else 0:.2f} s later); "
+              f"resumed losses "
+              f"{' '.join(f'{x:.4f}' for x in got)} against (b)'s "
+              f"{' '.join(f'{x:.4f}' for x in want)} (bit for bit "
+              f"{got == want}); num_failures {trial.num_failures}",
+              flush=True)
+        check(steps == list(range(TUNE_RESUME_STEPS))
+              and len(set(pids[:TUNE_CKPT_AT + 1])) == 1
+              and pids[TUNE_CKPT_AT + 1] != pids[TUNE_CKPT_AT]
+              and trial.num_failures == 1,
+              f"18(c): steps {steps}, pids {pids}, failures "
+              f"{trial.num_failures}: the actor did not die and resume")
+        check(got == want, f"18(c): resumed losses {got} are not (b)'s "
+                           f"{want} bit for bit")
+        n = _trial_launches([hist])
+        _check_launches("18(c)", n, len(hist), L, per, cuda)
+        _add_launches(launches, n)
+
+        # (d) a Tuner over a TorchTrainer fed by the same Dataset
+        gang_ds = rd.read_tfrecords(path).map_batches(
+            _token_rows, fn_kwargs={"column": "bytes"}).limit(
+                TUNE_GANG_STEPS * b)
+        trainer = tr.TorchTrainer(
+            _tune_gang_loop,
+            train_loop_config={"batch": b, "steps": TUNE_GANG_STEPS,
+                               "device": device},
+            torch_config=tr.TorchConfig(device=device, distributed=True,
+                                        timeout_s=600.0),
+            scaling_config=tr.ScalingConfig(num_workers=1, use_gpu=cuda),
+            datasets={"train": gang_ds})
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            trainer, param_space={"lr": tune.grid_search([3e-4, 1e-3])},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=1),
+            run_config=tr.RunConfig(storage_path=work, name="gang")).fit()
+        gang_s = time.perf_counter() - t0
+        check(not grid.errors, f"18(d): the gang trials failed: "
+                               f"{grid.errors}")
+        finals = [t.last_result for t in grid._trials]
+        want = sweep_losses[TUNE_GANG_STEPS - 1]
+        got = finals[0].get("loss")
+        print(f"  (d) Tuner over TorchTrainer (one "
+              f"{'use_gpu worker, NCCL' if cuda else 'CPU worker, gloo'}, "
+              f"datasets={{'train': ds}}): lr 3e-4 loss at step "
+              f"{finals[0].get('step')} {got:.4f} against (b)'s "
+              f"{want:.4f} (bit for bit {got == want}); lr 1e-3 "
+              f"{finals[1].get('loss'):.4f}; the gang's "
+              f"CUDA_VISIBLE_DEVICES {finals[0].get('visible')!r}; "
+              f"{gang_s:.1f} s", flush=True)
+        check(got == want and finals[0].get("step") == TUNE_GANG_STEPS - 1,
+              f"18(d): the gang trial's loss {got} at step "
+              f"{finals[0].get('step')} is not (b)'s {want}")
+        n = {k: sum(f["launches"][k] for f in finals)
+             for k in finals[0]["launches"]}
+        _check_launches("18(d)", n, len(finals) * TUNE_GANG_STEPS, L, per,
+                        cuda)
+        _add_launches(launches, n)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    if cuda:
+        # every trial actor and gang worker is gone, its context with it
+        deadline = time.monotonic() + 60
+        while True:
+            free = torch.cuda.mem_get_info()[0]
+            if free >= free0 - (1 << 30) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(free >= free0 - (1 << 30),
+              f"18(b): after the sweeps the card has {free / 2**30:.2f} GiB "
+              f"free, {free0 / 2**30:.2f} before")
+        print(f"  after shutdown(): {free / 2**30:.2f} GiB free on the "
+              f"card, {free0 / 2**30:.2f} before", flush=True)
+    print(f"  phase 18 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -4873,6 +5441,11 @@ def main() -> None:
           "fp32 2 layers against 9(a), the DAG device lane, DAG mode, a "
           "replica SIGKILLed mid-stream", flush=True)
     served = serve_plane_phase(dev, phase3, disagg_fp32)
+    print("phase 18: Data's readers and Tune on the card: four readers "
+          "bit for bit, a GPT-2 125M sweep on num_gpus=1 trial actors "
+          "under ASHA fed from TFRecords, a trial killed and resumed, a "
+          "Tuner over a TorchTrainer", flush=True)
+    swept = tune_phase(dev, families["gpt2"]["losses"])
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama
@@ -4908,7 +5481,10 @@ def main() -> None:
     # worker and predictor actor the d-128 flash kernels, phase 17's
     # replicas and generate stage the d-128 forward (wgmma and 3xTF32)
     # and the G-4 paged kernel
-    for part in (tp_serve, ckpt, tp_disagg, runtime, gang, data, served):
+    # and phase 18's trial actors and gang workers the d-64 wgmma flash
+    # kernels
+    for part in (tp_serve, ckpt, tp_disagg, runtime, gang, data, served,
+                 swept):
         for name, n in part.items():
             launches[name] += n
     # the scalar kernels' rows: phase 8's count (its presets are fp32)

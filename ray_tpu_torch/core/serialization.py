@@ -97,9 +97,20 @@ class _Pickler(cloudpickle.Pickler):
     dispatch_table = cloudpickle.Pickler.dispatch_table
 
 
-def _register_torch() -> None:
+def loaded_torch():
+    """The torch module once some thread has finished importing it, else
+    None. Never imports torch. A module still being imported by another
+    thread is in ``sys.modules`` half built (no ``torch.strided`` or
+    ``torch.Tensor`` yet), and no tensor can exist before it is done."""
+    torch = sys.modules.get("torch")
+    if torch is None or getattr(getattr(torch, "__spec__", None),
+                                "_initializing", False):
+        return None
+    return torch
+
+
+def _register_torch(torch) -> None:
     global _torch_strided, _torch_uint8
-    torch = sys.modules["torch"]
     _torch_strided, _torch_uint8 = torch.strided, torch.uint8
     from collections import ChainMap
 
@@ -108,8 +119,10 @@ def _register_torch() -> None:
 
 
 def _dumps(obj: Any, buffer_callback) -> bytes:
-    if _torch_uint8 is None and "torch" in sys.modules:
-        _register_torch()
+    if _torch_uint8 is None:
+        torch = loaded_torch()
+        if torch is not None:
+            _register_torch(torch)
     with io.BytesIO() as f:
         _Pickler(f, protocol=5, buffer_callback=buffer_callback).dump(obj)
         return f.getvalue()

@@ -49,6 +49,11 @@ class WorkerCore:
                 lambda n: self._request(protocol.REQ_NEED_SPACE, n)[1])
         self.node_id = node_id
         self.worker_id = worker_id
+        # the driver's session directory (the parent of the package dir
+        # it names): a gang that a worker starts (a Tune trial over a
+        # TorchTrainer) meets in a rendezvous file there, as the driver's
+        pkg_dir = os.environ.get("RTPU_PKG_DIR")
+        self._session_dir = os.path.dirname(pkg_dir) if pkg_dir else None
         # task/actor context is thread-local: concurrent actor threads
         # (max_concurrency > 1) must not clobber each other's attribution
         self._ctx_tls = threading.local()
@@ -147,12 +152,8 @@ class WorkerCore:
             else:
                 missing.append(oid)
         if missing:
-            timeout_ms = -1 if timeout is None else int(timeout * 1000)
-            cur = self.current_task_id.binary() if self.current_task_id else None
-            _, payloads = self._request(
-                protocol.REQ_GET, [o.binary() for o in missing], timeout_ms,
-                cur,
-            )
+            payloads = self._get_sliced([o.binary() for o in missing],
+                                        timeout)
             for oid in missing:
                 values[oid] = protocol.deserialize_payload(
                     payloads[oid.binary()], store=self.store
@@ -161,6 +162,32 @@ class WorkerCore:
         for oid in oids:
             out.append(protocol.raise_if_error(values[oid]))
         return out
+
+    def _get_sliced(self, oid_bytes: List[bytes],
+                    timeout: Optional[float]) -> Dict[bytes, Any]:
+        """The owner's payloads of ``oid_bytes``, asked for in slices of at
+        most 200 ms (as ``wait``): the data connection is this process's,
+        one request at a time, and an unbounded get would hold every other
+        thread's request behind it (a trial actor's ``fit()`` waits on its
+        gang while the gang's Dataset feeder, a thread of the same actor,
+        must reach the split coordinator)."""
+        import time
+
+        from ray_tpu_torch.exceptions import GetTimeoutError
+
+        cur = self.current_task_id.binary() if self.current_task_id else None
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            slice_ms = 200 if deadline is None else max(
+                0, min(200, int((deadline - time.monotonic()) * 1000)))
+            try:
+                _, payloads = self._request(
+                    protocol.REQ_GET, oid_bytes, slice_ms, cur)
+                return payloads
+            except GetTimeoutError:
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise
+            time.sleep(0.001)   # a window for the other threads' requests
 
     def put_object(self, value: Any) -> ObjectRef:
         oid = ObjectID.from_random()
@@ -237,15 +264,17 @@ class WorkerCore:
             slice_ms = 200
             if deadline is not None:
                 remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    raise ObjectTimeoutError(
-                        f"stream {seed.hex()} index {index} not produced "
-                        f"within {timeout}s")
-                slice_ms = min(slice_ms, max(1, int(remaining * 1000)))
+                slice_ms = min(slice_ms, max(0, int(remaining * 1000)))
+            # asked at least once: timeout=0 is a poll (the streaming
+            # executor's), not a refusal to look
             reply = self._request(
                 protocol.REQ_STREAM_NEXT, seed, index, slice_ms, owner)
             if reply[0] != "pending":
                 return reply[0], reply[1] if len(reply) > 1 else None
+            if deadline is not None and time.monotonic() >= deadline:
+                raise ObjectTimeoutError(
+                    f"stream {seed.hex()} index {index} not produced "
+                    f"within {timeout}s")
 
     def stream_consumed(self, seed: bytes, index: int, owner=None):
         self._send_async(
@@ -262,14 +291,25 @@ class WorkerCore:
         return ActorID(actor_id_b)
 
     def wait(self, refs, num_returns=1, timeout=None):
+        """Owner-side wait in slices of at most 200 ms, for the reason
+        ``_get_sliced`` gives."""
+        import time
+
         if num_returns > len(refs):
             raise ValueError("num_returns exceeds number of refs")
         by_id = {r.id.binary(): r for r in refs}
         cur = self.current_task_id.binary() if self.current_task_id else None
-        _, ready_b, rest_b = self._request(
-            protocol.REQ_WAIT, list(by_id.keys()), num_returns, timeout, cur
-        )
-        return [by_id[b] for b in ready_b], [by_id[b] for b in rest_b]
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            slice_s = 0.2 if deadline is None else max(
+                0.0, min(0.2, deadline - time.monotonic()))
+            _, ready_b, rest_b = self._request(
+                protocol.REQ_WAIT, list(by_id.keys()), num_returns, slice_s,
+                cur)
+            if len(ready_b) >= num_returns or (
+                    deadline is not None and time.monotonic() >= deadline):
+                return [by_id[b] for b in ready_b], [by_id[b] for b in rest_b]
+            time.sleep(0.001)   # a window for the other threads' requests
 
     # ---- placement groups (proxied to the driver) ---------------------------
 

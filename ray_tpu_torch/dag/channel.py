@@ -41,11 +41,12 @@ from ray_tpu_torch.util.debug_lock import make_lock
 def _tensor_table():
     """The runtime's tensor reducer as a pickler dispatch table, once
     torch is loaded (this module never imports it); None before."""
-    if "torch" not in sys.modules:
-        return None
     from ray_tpu_torch.core import serialization
 
-    return {sys.modules["torch"].Tensor: serialization._reduce_tensor}
+    torch = serialization.loaded_torch()
+    if torch is None:
+        return None
+    return {torch.Tensor: serialization._reduce_tensor}
 
 
 def _chan_dumps(value: Any) -> bytes:
@@ -212,7 +213,9 @@ def _is_device_array(value: Any) -> bool:
     """True for a torch tensor (the payload DeviceChannel hands over by
     reference); anything else rides the inner pickled shm path. Never
     imports torch: a process that has not loaded it holds no tensor."""
-    torch = sys.modules.get("torch")
+    from ray_tpu_torch.core.serialization import loaded_torch
+
+    torch = loaded_torch()
     return torch is not None and isinstance(value, torch.Tensor)
 
 

@@ -11,9 +11,9 @@ host buffers and a side stream, ``streaming_split`` fans one execution
 out to a gang of Train workers, and ``map_batches(num_gpus=)`` runs a UDF
 on GPU actors.
 
-The readers whose datasources are not ported yet (TFRecords, WebDataset,
-SQL, images, Avro, HuggingFace, BigQuery, Delta, Iceberg) are here and
-raise ``NotImplementedError``; they are not in ``__all__``.
+The readers import what their format needs when they read: TFRecords,
+WebDataset, SQL and Avro need the standard library alone; images need
+PIL; HuggingFace, Delta, Iceberg and BigQuery need pyarrow.
 """
 
 from ray_tpu_torch.data.block import (  # noqa: F401
@@ -91,8 +91,11 @@ __all__ = [
     "AggregateFn", "Sum", "Min", "Max", "Mean", "Count", "Std",
     "GroupedData", "preprocessors", "col", "lit",
     "range", "range_tensor", "from_items", "from_numpy", "from_arrow",
-    "from_pandas", "from_blocks", "from_torch",
+    "from_pandas", "from_blocks", "from_torch", "from_huggingface",
+    "read_huggingface",
     "read_datasource", "read_parquet",
     "read_csv", "read_json", "read_numpy", "read_text",
-    "read_binary_files",
+    "read_binary_files", "read_tfrecords", "read_webdataset", "read_sql",
+    "read_images", "read_avro", "read_bigquery", "read_delta",
+    "read_iceberg",
 ] + list(_CLOUD_SOURCES)

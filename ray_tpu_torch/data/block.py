@@ -375,7 +375,10 @@ class BlockAccessor:
                     arr = np.asarray(vals)
                 except ValueError:
                     arr = _object_array(vals)
-                if arr.dtype == object:
+                # object values, and str or bytes whose trailing NULs a
+                # numpy U or S array would drop (the reference's rows lose
+                # them), keep the values as they are
+                if arr.dtype == object or arr.dtype.kind in "US":
                     cols[k], kinds[k] = _from_values(vals)
                 else:
                     cols[k], kinds[k] = _column(arr)
@@ -585,6 +588,12 @@ def from_arrow(pa_table) -> Table:
             cols[name] = col.to_numpy()
         else:
             cols[name], kind = _from_values(col.to_pylist())
+            if kind == "null":
+                # every value null: the column's Arrow type names its kind
+                # (an all-null int column converts to NaNs, as Arrow's)
+                kind = ("int64" if pa.types.is_integer(typ) else
+                        "double" if pa.types.is_floating(typ) else
+                        "bool" if pa.types.is_boolean(typ) else kind)
             if kind:
                 kinds[name] = kind
             elif pa.types.is_null(typ):

@@ -10,8 +10,7 @@ The port's copy of ``ray_tpu/data/dataset.py``. Differences:
 ``num_chips=`` (an actor pool of GPU actors, each seeing its card as
 ``cuda:0``); there is no ``iter_jax_batches`` (``iter_torch_batches``
 stages CUDA batches); ``rename_columns`` maps numpy batches (the
-reference renames Arrow tables); the readers of the datasources not
-ported yet raise ``NotImplementedError``.
+reference renames Arrow tables).
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from ray_tpu_torch.data.datasource import (
     ParquetDatasource,
     RangeDatasource,
     TextDatasource,
+    TFRecordsDatasource,
 )
 from ray_tpu_torch.data.iterator import DataIterator
 from ray_tpu_torch.data.logical import ActorPoolStrategy, TaskPoolStrategy
@@ -463,11 +463,41 @@ class Dataset:
     def write_numpy(self, path: str, **kw):
         return self._write(path, "npy", **kw)
 
-    def write_bigquery(self, *args, **kwargs):
-        _not_ported("write_bigquery")()
+    def write_bigquery(self, project_id: str, dataset: str) -> int:
+        """Append to a BigQuery table via parallel load jobs; returns the
+        row count written (reference: Dataset.write_bigquery)."""
+        from ray_tpu_torch.data.datasource import write_bigquery_block
 
-    def write_tfrecords(self, *args, **kwargs):
-        _not_ported("write_tfrecords")()
+        @ray_tpu_torch.remote
+        def _write_one(blocks, project_id=project_id, dataset=dataset):
+            return sum(write_bigquery_block(b, project_id, dataset)
+                       for b in blocks)
+
+        refs = [_write_one.remote(bundle.blocks_ref)
+                for bundle in self._execute_bundles()]
+        return sum(ray_tpu_torch.get(refs))
+
+    def write_tfrecords(self, path: str, column: str = "bytes"):
+        """Write one TFRecord file per block from a bytes column, with
+        valid masked CRC-32C framing (reference: Dataset.write_tfrecords;
+        interoperable with TensorFlow readers)."""
+        import os as _os
+
+        from ray_tpu_torch.data.datasource import write_tfrecords_file
+
+        _os.makedirs(path, exist_ok=True)
+
+        @ray_tpu_torch.remote
+        def _write_one(blocks, idx, path=path, column=column):
+            out = _os.path.join(path, f"part-{idx:05d}.tfrecords")
+            recs = []
+            for b in blocks:
+                recs.extend(BlockAccessor(b).to_numpy()[column].tolist())
+            return write_tfrecords_file(recs, out)
+
+        refs = [_write_one.remote(bundle.blocks_ref, i)
+                for i, bundle in enumerate(self._execute_bundles())]
+        return sum(ray_tpu_torch.get(refs))
 
     # ---- conversions ----
 
@@ -581,20 +611,6 @@ def read_binary_files(paths, *, parallelism: int = -1) -> Dataset:
     return read_datasource(BinaryDatasource(paths), parallelism=parallelism)
 
 
-def _not_ported(api: str) -> Callable:
-    """An entry point of ``ray_tpu.data`` whose datasource is not ported
-    yet: it raises, naming the roadmap item that brings it."""
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{api}: this datasource is not ported to ray_tpu_torch.data "
-            "yet (ROADMAP.md section 1, item 1: the deferred readers); "
-            "read_parquet, read_csv, read_json, read_numpy, read_text, "
-            "read_binary_files and from_torch are")
-    refuse.__name__ = api
-    refuse.__qualname__ = api
-    return refuse
-
-
 def from_torch(torch_dataset, *, parallelism: int = -1) -> Dataset:
     from ray_tpu_torch.data.datasource import TorchDatasource
 
@@ -602,13 +618,88 @@ def from_torch(torch_dataset, *, parallelism: int = -1) -> Dataset:
                            parallelism=parallelism)
 
 
-read_tfrecords = _not_ported("read_tfrecords")
-read_webdataset = _not_ported("read_webdataset")
-read_sql = _not_ported("read_sql")
-read_images = _not_ported("read_images")
-read_avro = _not_ported("read_avro")
-read_huggingface = _not_ported("read_huggingface")
-from_huggingface = _not_ported("from_huggingface")
-read_bigquery = _not_ported("read_bigquery")
-read_delta = _not_ported("read_delta")
-read_iceberg = _not_ported("read_iceberg")
+def read_huggingface(path, *, split=None, parallelism: int = -1) -> Dataset:
+    """Read a dataset saved by HF ``datasets``' ``save_to_disk`` (arrow
+    shards; DatasetDict needs ``split=``) as a DISTRIBUTED read — the
+    local-format sibling of ``from_huggingface`` (which converts an
+    in-memory Dataset). No hub client or network involved."""
+    from ray_tpu_torch.data.datasource import HuggingFaceDatasource
+
+    return read_datasource(HuggingFaceDatasource(path, split=split),
+                           parallelism=parallelism)
+
+
+def read_tfrecords(paths, *, parallelism: int = -1) -> Dataset:
+    return read_datasource(TFRecordsDatasource(paths),
+                           parallelism=parallelism)
+
+
+def read_webdataset(paths, *, parallelism: int = -1) -> Dataset:
+    from ray_tpu_torch.data.datasource import WebDatasetDatasource
+
+    return read_datasource(WebDatasetDatasource(paths),
+                           parallelism=parallelism)
+
+
+def read_sql(sql: str, connection_factory, *, parallelism: int = -1
+             ) -> Dataset:
+    from ray_tpu_torch.data.datasource import SQLDatasource
+
+    return read_datasource(SQLDatasource(sql, connection_factory),
+                           parallelism=parallelism)
+
+
+def read_images(paths, *, size=None, mode=None,
+                parallelism: int = -1) -> Dataset:
+    from ray_tpu_torch.data.datasource import ImageDatasource
+
+    return read_datasource(ImageDatasource(paths, size=size, mode=mode),
+                           parallelism=parallelism)
+
+
+def read_avro(paths, *, parallelism: int = -1) -> Dataset:
+    from ray_tpu_torch.data.datasource import AvroDatasource
+
+    return read_datasource(AvroDatasource(paths), parallelism=parallelism)
+
+
+def from_huggingface(hf_dataset, *, parallelism: int = -1) -> Dataset:
+    from ray_tpu_torch.data.datasource import huggingface_to_blocks
+
+    return from_blocks(huggingface_to_blocks(hf_dataset, parallelism))
+
+
+def read_bigquery(project_id: str, dataset: str = None, query: str = None,
+                  *, parallelism: int = -1) -> Dataset:
+    from ray_tpu_torch.data.datasource import BigQueryDatasource
+
+    return read_datasource(
+        BigQueryDatasource(project_id, dataset=dataset, query=query),
+        parallelism=parallelism)
+
+
+def read_iceberg(table_path: str, *, columns=None, snapshot_id=None,
+                 parallelism: int = -1) -> Dataset:
+    """Read a snapshot of an Apache Iceberg table — implemented in-tree
+    over the open table format (JSON metadata + Avro manifest replay +
+    parquet data files), no pyiceberg dependency (reference:
+    _internal/datasource/iceberg_datasource.py). ``snapshot_id``
+    time-travels to any retained snapshot."""
+    from ray_tpu_torch.data.datasource import IcebergDatasource
+
+    return read_datasource(
+        IcebergDatasource(table_path, columns=columns,
+                          snapshot_id=snapshot_id),
+        parallelism=parallelism)
+
+
+def read_delta(table_path: str, *, columns=None,
+               parallelism: int = -1) -> Dataset:
+    """Read the current snapshot of a Delta Lake table — implemented
+    in-tree over the open table format (JSON transaction log + parquet
+    checkpoint replay), no deltalake dependency (reference:
+    read_delta/delta sharing datasources)."""
+    from ray_tpu_torch.data.datasource import DeltaDatasource
+
+    return read_datasource(DeltaDatasource(table_path, columns=columns),
+                           parallelism=parallelism)

@@ -33,7 +33,6 @@ backend; they run on the device over the process group
 
 from __future__ import annotations
 
-import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -65,7 +64,9 @@ class CollectiveAbortedError(RayTpuError):
 
 
 def _is_tensor(x) -> bool:
-    torch = sys.modules.get("torch")
+    from ray_tpu_torch.core.serialization import loaded_torch
+
+    torch = loaded_torch()
     return torch is not None and isinstance(x, torch.Tensor)
 
 

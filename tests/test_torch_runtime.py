@@ -487,6 +487,32 @@ def test_runtime_imports_no_torch():
     assert out.stdout.split() == ["False", "False", "False"]
 
 
+def test_serialize_while_another_thread_imports_torch(monkeypatch):
+    """A value is pickled while another thread is still importing torch
+    (a Train worker's result sent as its loop's first ``import torch``
+    runs): ``sys.modules`` then holds a half-built torch with no
+    ``strided``, and the tensor reducer must wait for the finished
+    module, not raise (the call's result and its error were both lost,
+    and the caller waited forever)."""
+    import types
+    from importlib.machinery import ModuleSpec
+
+    from ray_tpu_torch.core import serialization
+
+    half = types.ModuleType("torch")
+    half.__spec__ = ModuleSpec("torch", None)
+    half.__spec__._initializing = True
+    monkeypatch.setitem(sys.modules, "torch", half)
+    monkeypatch.setattr(serialization, "_torch_uint8", None)
+    monkeypatch.setattr(serialization, "_torch_strided", None)
+    monkeypatch.setattr(serialization._Pickler, "dispatch_table",
+                        serialization._Pickler.dispatch_table)
+    assert serialization.loaded_torch() is None
+    assert serialization.unpack(serialization.pack({"a": [1, 2]})) == \
+        {"a": [1, 2]}
+    assert serialization._torch_uint8 is None
+
+
 def test_worker_that_connects_before_its_spawner_returns():
     """A zygote fork can say hello before the spawning thread has run
     again (a loaded host); the runtime must already know its id, or it
