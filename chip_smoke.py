@@ -141,7 +141,9 @@ Phases, each printing what it finds; any failure exits non-zero:
    reference's ValueError.
 13. sharded checkpoints, the predictor, and disaggregated serving and
    page export/import under ``mesh=``. (a) Phase 5's run (rebuilt from
-   ``profile_train``) after its 5 AdamW steps: params and AdamW state
+   ``profile_train``, cut to ``CKPT_LAYERS`` = 2 layers to keep the
+   whole script inside its time limit) after its 5 AdamW steps: params
+   and AdamW state
    through ``train.dist_checkpoint.save`` into the temporary directory
    (its free space printed first; the params alone if it cannot hold
    both), freed, restored into fresh tensors on the card: every leaf's
@@ -282,6 +284,35 @@ Phases, each printing what it finds; any failure exits non-zero:
    ``datasets={"train": ds}`` over lr 3e-4 and 1e-3: the lr 3e-4 trial's
    step-4 loss equals (b)'s. The card's free memory is back after
    ``shutdown()``; the phase prints its seconds.
+19. the RLlib drivers on the card (``ray_tpu_torch.rllib``, the runtime
+   started afresh with a 256 MiB store): learners on the card through
+   ``learners(device=None)``, EnvRunners plain CPU actors. (a) an
+   ``EnvRunner`` (the conv module on Catch) and an ``OffPolicyRunner`` of
+   each kind (DQN on CartPole, SAC on Pendulum) given a card learner's
+   weights return the batches and ``evaluate`` returns that the same
+   runner code computes in this process from the same seed, bit for bit;
+   the runner's worker sees ``CUDA_VISIBLE_DEVICES=""`` and no card. (b)
+   ``tests/test_rllib.py::test_ppo_cnn_learns_pixel_catch``'s program (2
+   runners x 16 envs x 64 steps, lr 1e-3, seed 0): an
+   ``episode_return_mean`` of 0.6 within 40 iterations, the learner's
+   module the port's ``CNNModule`` on the card, each of the first 3
+   updates' losses at rtol 1e-4 of a CPU learner started from the card
+   learner's state on the same batch and permutations; after ``stop()``
+   a runner call raises ``ActorDiedError``. (c)
+   ``test_impala_cnn_learns_pixel_catch``'s program: 0.5 within 60
+   iterations, one sample in flight a runner after every ``train()``.
+   (d) APPO on Catch, DQN (uniform, then prioritized) on CartPole and SAC
+   on Pendulum, 3 iterations past ``learning_starts``: finite losses, the
+   learners' parameters on the card, the priorities moved by the TD
+   errors. (e) ``MultiAgentPPO`` on Coordination-v0, two policies, one
+   trained: the frozen one's weights equal bit for bit after 3
+   iterations, the trained one's moved. (f) DreamerV3 on CartPole (8
+   envs, ``learning_starts`` 256, 3 iterations of 32 steps): every
+   ``act`` and update on the card, finite metrics. Each iteration's ms
+   and its split (the weights' host copy, the updates, sampling and the
+   rest), env steps/s; DreamerV3's ms an ``act`` and an update. No
+   attention kernel launches; the card's free memory is back after
+   ``shutdown()``; the phase prints its seconds.
 
 Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward, dQ and
 dK/dV launch took the 3xTF32 kernels.
@@ -297,7 +328,8 @@ forward and G-4 paged rows phase 12's and phase 14's engines, the G-4
 paged row phase 13's, phase 17's replicas and generate stage the d-128
 wgmma and 3xTF32 forward and the G-4 paged rows, phase 18's trial
 actors and gang workers the d-64/128 wgmma rows; the scalar bf16 rows
-phase 8's, 0 there: the tiny presets are fp32);
+phase 8's, 0 there: the tiny presets are fp32; phase 19 launches no
+attention kernel);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the ray_tpu_torch package beside it, the script exits non-zero
 before any result.
@@ -3026,9 +3058,15 @@ def _tree_meta(tree) -> dict:
             for k, v in tree.items()}
 
 
+# phase 13(a)'s depth: at phase 5's 8 layers the state is 33.55 GB, and on
+# an H100 80GB HBM3 at 700 W its save and restore took 88 s of a whole run
+# of 1140.6 s (1200 s allowed); at 2 layers, 17.84 GB and 35 s
+CKPT_LAYERS = 2
+
+
 def checkpoint_phase(dev) -> dict:
-    """13(a) and (b): phase 5's run (``profile_train.build_train_run``,
-    5 AdamW steps) is saved with ``train.dist_checkpoint.save`` (params
+    """13(a) and (b): phase 5's run (``profile_train.build_train_run``
+    at ``CKPT_LAYERS`` layers, 5 AdamW steps) is saved with ``train.dist_checkpoint.save`` (params
     and AdamW state, or the params alone when the temporary directory
     cannot hold both), freed, and restored into fresh tensors on the
     card: every leaf's checksum and the step-6 loss must be those from
@@ -3047,7 +3085,8 @@ def checkpoint_phase(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     counters_reset()
-    cfg, params, opt, toks = run.build_train_run(dev)
+    cfg, params, opt, toks = run.build_train_run(
+        dev, cfg=llama.LlamaConfig.llama3_8b(num_layers=CKPT_LAYERS))
     for _ in range(5):
         run.train_step(cfg, params, opt, toks)
     opt.zero_grad(set_to_none=True)
@@ -5332,6 +5371,498 @@ def tune_phase(dev, gpt2_losses: list) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 19
+
+RL_STORE_BYTES = 256 << 20
+# the reference's learning bars (tests/test_rllib.py) and budgets
+PPO_CATCH_BAR, PPO_CATCH_ITERS = 0.6, 40
+IMPALA_CATCH_BAR, IMPALA_CATCH_ITERS = 0.5, 60
+RL_HELD_UPDATES = 3   # PPO updates held to a CPU learner
+
+
+class _Clock:
+    """Wall seconds of a learner's calls, by method name: wraps
+    ``obj.<name>`` for each name, each call ending in the host (the
+    weights come back as numpy, the metrics as floats)."""
+
+    def __init__(self, obj, *names):
+        self.s = {n: [] for n in names}
+        for n in names:
+            fn = getattr(obj, n)
+            setattr(obj, n, self._wrap(n, fn))
+
+    def _wrap(self, name, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.s[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def take(self) -> dict:
+        """The seconds each method took since the last take."""
+        out = {n: sum(v) for n, v in self.s.items()}
+        out.update({f"n_{n}": len(v) for n, v in self.s.items()})
+        for v in self.s.values():
+            v.clear()
+        return out
+
+
+def _rl_visible_runner():
+    """The EnvRunner class with one more method: what its worker sees of
+    the card."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+
+    class VisibleRunner(EnvRunner._cls):
+        def visible(self):
+            import os as _os
+
+            import torch as _torch
+            return (_os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    _torch.cuda.is_available())
+
+    return rt.remote(VisibleRunner)
+
+
+def _same_batch(got: dict, want: dict) -> bool:
+    return sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype
+        and np.array_equal(got[k], want[k]) for k in want)
+
+
+def _on(module, dev) -> bool:
+    return all(p.device.type == dev.type for p in module.parameters())
+
+
+def _split_line(r: dict, c: dict, what: str = "update") -> str:
+    wall = r["time_this_iter_s"]
+    other = wall - c["get_weights"] - c[what]
+    return (f"{wall * 1e3:.1f} ms (weights' host copy {c['get_weights'] * 1e3:.2f}"
+            f" ms x {c['n_get_weights']}, {what} {c[what] * 1e3:.1f} ms x "
+            f"{c['n_' + what]}, sampling and the rest {other * 1e3:.1f} ms)")
+
+
+def rl_drivers_phase(dev) -> dict:
+    """19: the RLlib drivers on the card, the runtime started afresh.
+    Learners on ``dev`` (``learners(device=None)`` on the card), runners
+    plain CPU actors. (a) an ``EnvRunner`` (the conv module on Catch) and
+    an ``OffPolicyRunner`` of each kind (DQN on CartPole, SAC on
+    Pendulum) given a card learner's weights return, bit for bit, the
+    batches the same runner code computes in this process from the same
+    seed; the runners' worker sees ``CUDA_VISIBLE_DEVICES=""`` and no
+    card. (b) ``tests/test_rllib.py::test_ppo_cnn_learns_pixel_catch``'s
+    program: PPO on CatchPixels-v0, 2 runners x 16 envs x 64 steps, lr
+    1e-3, seed 0, reaches an ``episode_return_mean`` of 0.6 within 40
+    iterations, the learner's module the port's ``CNNModule`` on the
+    card; each of the first 3 updates is held to a CPU learner started
+    from the card learner's state on the same batch and permutations
+    (losses at rtol 1e-4, as phase 10). (c)
+    ``test_impala_cnn_learns_pixel_catch``'s program: IMPALA reaches 0.5
+    within 60 iterations, every runner with one sample in flight after
+    each ``train()``. (d) APPO on Catch, DQN uniform and prioritized on
+    CartPole, SAC on Pendulum: 3 iterations past ``learning_starts``,
+    finite losses, the learners' parameters on the card, prioritized
+    replay's priorities moved by the TD errors. (e) ``MultiAgentPPO`` on
+    Coordination-v0 with two policies, one of them in
+    ``policies_to_train``: the frozen policy's weights stay equal bit for
+    bit, the trained one's move. (f) DreamerV3 on CartPole, 8 envs,
+    ``learning_starts`` 256, 3 iterations of 32 steps: every ``act`` and
+    update on the card, finite metrics. ms an iteration and its split
+    (the weights' host copy, the updates, the rest: sampling and the
+    object store), env steps/s; DreamerV3's ms an ``act`` and an update.
+    ``stop()`` kills the runners; no attention kernel launches; the
+    card's free memory is back after ``shutdown()``. Returns each
+    driver's median seconds an iteration. On the CPU (a rehearsal) the
+    learners run there."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import env_runner, learner, rl_module
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    times = {}
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info()[0]
+    counters_reset()
+    rt.init(num_workers=4, object_store_memory=RL_STORE_BYTES)
+    try:
+        # every runner actor is made up front, each a process that
+        # imports torch: they start side by side while the phase runs
+        t_build = time.perf_counter()
+        catch_spec = rllib.algorithm.module_spec_of(
+            rllib.envs.make_env("CatchPixels-v0", 1), (64, 64))
+        pv = learner.PPOLearner(rl_module.build_pv_module(catch_spec),
+                                seed=0, device=device)
+        dqn_spec = {"obs_dim": 4, "num_actions": 2,
+                    "hidden": rllib.DQNConfig().module_hidden}
+        ql = rllib.dqn.DQNLearner(rl_module.QMLPModule(**dqn_spec),
+                                  seed=0, device=device)
+        sac_spec = {"obs_dim": 3, "action_dim": 1, "action_low": -2.0,
+                    "action_high": 2.0, "hidden": (128, 128)}
+        sl = rllib.sac.SACLearner(
+            rl_module.SquashedGaussianModule(**sac_spec),
+            rl_module.TwinQModule(3, 1), seed=0, device=device)
+        check(all(_on(m, dev) for m in (pv.module, ql.module, sl.actor,
+                                       sl.critic)),
+              "19(a): a learner's parameters are not on the card")
+        runner_cls = _rl_visible_runner()
+        cases = [
+            ("EnvRunner (CNN, Catch)", runner_cls, env_runner.EnvRunner._cls,
+             ("CatchPixels-v0", 16, 64, catch_spec), {"seed": 0},
+             pv.get_weights(), [("sample", ()), ("sample_sequences", ()),
+                                ("evaluate", (4,))]),
+            ("OffPolicyRunner (DQN, CartPole)", env_runner.OffPolicyRunner,
+             env_runner.OffPolicyRunner._cls,
+             ("CartPole-v1", 8, dqn_spec), {"kind": "dqn", "seed": 0},
+             ql.get_weights(), [("sample_transitions", (64, 0.3)),
+                                ("evaluate", (4,))]),
+            ("OffPolicyRunner (SAC, Pendulum)", env_runner.OffPolicyRunner,
+             env_runner.OffPolicyRunner._cls,
+             ("Pendulum-v1", 8, sac_spec), {"kind": "sac", "seed": 0},
+             sl.get_weights(), [("sample_transitions", (64,)),
+                                ("evaluate", (2,))])]
+        actors = [actor_cls.remote(*args, **kw)
+                  for _, actor_cls, _, args, kw, _, _ in cases]
+
+        ppo_cfg = (rllib.PPOConfig().environment("CatchPixels-v0")
+                   .env_runners(num_env_runners=2,
+                                num_envs_per_env_runner=16,
+                                rollout_fragment_length=64)
+                   .training(lr=1e-3, gamma=0.99).debugging(seed=0)
+                   .learners(device=device))
+        impala_cfg = (rllib.IMPALAConfig().environment("CatchPixels-v0")
+                      .env_runners(num_env_runners=2,
+                                   num_envs_per_env_runner=16,
+                                   rollout_fragment_length=32)
+                      .training(lr=1e-3, gamma=0.99).debugging(seed=0)
+                      .learners(device=device))
+
+        def dqn(prioritized):
+            c = (rllib.DQNConfig().environment("CartPole-v1")
+                 .debugging(seed=0).learners(device=device))
+            c.train_kwargs.update(learning_starts=1024,
+                                  prioritized_replay=prioritized)
+            return c
+
+        sac_cfg = (rllib.SACConfig().environment("Pendulum-v1")
+                   .debugging(seed=0).learners(device=device))
+        sac_cfg.train_kwargs.update(learning_starts=512)
+        ma_cfg = (rllib.MultiAgentPPOConfig().environment("Coordination-v0")
+                  .env_runners(num_env_runners=2, num_envs_per_env_runner=16,
+                               rollout_fragment_length=32)
+                  .training(lr=3e-4, gamma=0.95).debugging(seed=0)
+                  .multi_agent(policies=["p0", "p1"],
+                               policy_mapping_fn=lambda a: (
+                                   "p0" if a == "a0" else "p1"),
+                               policies_to_train=["p0"])
+                  .learners(device=device))
+        algos = {
+            "PPO (Catch)": ppo_cfg.build(),
+            "IMPALA (Catch)": impala_cfg.build(),
+            "APPO (Catch)": (rllib.APPOConfig()
+                             .environment("CatchPixels-v0")
+                             .env_runners(num_env_runners=2,
+                                          num_envs_per_env_runner=16,
+                                          rollout_fragment_length=32)
+                             .debugging(seed=0).learners(device=device)
+                             .build()),
+            "DQN (CartPole)": dqn(False).build(),
+            "DQN prioritized (CartPole)": dqn(True).build(),
+            "SAC (Pendulum)": sac_cfg.build(),
+            "MultiAgentPPO (Coordination)": ma_cfg.build()}
+        n_actors = len(actors) + sum(len(a.runners) for a in algos.values())
+        print(f"  {n_actors} runner actors made and 7 drivers built in "
+              f"{time.perf_counter() - t_build:.2f} s (their processes "
+              f"start meanwhile)", flush=True)
+
+        # (a) runners on the card learner's weights, against the same
+        # runner code in this process
+        for actor, (what, actor_cls, cls, args, kw, w, calls) in zip(
+                actors, cases):
+            threads = torch.get_num_threads()
+            local = cls(*args, **kw)
+            torch.set_num_threads(threads)   # a runner takes one
+            w_ref = rt.put(w)
+            t0 = time.perf_counter()
+            remote = [rt.get(getattr(actor, m).remote(w_ref, *a),
+                             timeout=300) for m, a in calls]
+            actor_s = time.perf_counter() - t0
+            here = [getattr(local, m)(w, *a) for m, a in calls]
+            same = [(_same_batch(g, h) if isinstance(h, dict) else g == h)
+                    for g, h in zip(remote, here)]
+            check(all(same), f"19(a): {what}: {calls} from the actor equal "
+                             f"to the driver process's: {same}")
+            extra = ""
+            if actor_cls is runner_cls:
+                seen = rt.get(actor.visible.remote(), timeout=60)
+                check(seen == ("", False), f"19(a): a runner's worker sees "
+                                           f"CUDA_VISIBLE_DEVICES, CUDA "
+                                           f"{seen}")
+                extra = f"; the worker's CUDA_VISIBLE_DEVICES, CUDA {seen}"
+            rt.kill(actor)
+            print(f"  (a) {what}: {', '.join(m for m, _ in calls)} equal "
+                  f"bit for bit to the driver process's ({actor_s:.2f} s "
+                  f"in the actor, {time.perf_counter() - t_build:.2f} s "
+                  f"after it was made){extra}", flush=True)
+        del pv, ql, sl
+
+        # (b) PPO learns pixel Catch
+        cfg, algo = ppo_cfg, algos.pop("PPO (Catch)")
+        lrn = algo.learner
+        check(isinstance(lrn.module, rl_module.CNNModule)
+              and _on(lrn.module, dev),
+              f"19(b): the learner's module is {type(lrn.module).__name__} "
+              f"on {next(lrn.module.parameters()).device}")
+        kw = dict(cfg.train_kwargs)
+        kw.pop("lam")
+        anchor = learner.PPOLearner(
+            rl_module.build_pv_module(algo.module_spec), lr=cfg.lr,
+            seed=cfg.seed, device="cpu", **kw)
+        clock = _Clock(lrn, "get_weights", "update")
+        perm_rng = np.random.default_rng(19)
+        held, update = [], lrn.update
+
+        def held_update(batch, perms=None):
+            if len(held) >= RL_HELD_UPDATES:
+                return update(batch)
+            n, mb, E = len(batch["obs"]), kw["minibatch_size"], \
+                kw["num_epochs"]
+            perms = np.stack([perm_rng.permutation(n)[: n // mb * mb]
+                              for _ in range(E)]).reshape(E, n // mb, mb)
+            _rl_copy_state(anchor, lrn)
+            mc, mp = update(batch, perms=perms), anchor.update(
+                batch, perms=perms)
+            held.append(max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-30)
+                            for k in mp))
+            for k in mp:
+                check(abs(mc[k] - mp[k]) <= 1e-4 * abs(mp[k]),
+                      f"19(b): update {len(held)} {k} {mc[k]} on the card, "
+                      f"{mp[k]} on the CPU from the same state")
+            return mc
+
+        lrn.update = held_update
+        best, its, walls = -1.0, 0, []
+        try:
+            for its in range(1, PPO_CATCH_ITERS + 1):
+                r = algo.train()
+                c = clock.take()
+                best = max(best, r["episode_return_mean"])
+                steps = 2 * 16 * 64
+                walls.append(r["time_this_iter_s"])
+                print(f"  (b) PPO iteration {its}: return mean "
+                      f"{r['episode_return_mean']:.3f}, "
+                      f"{_split_line(r, c)}, "
+                      f"{steps / r['time_this_iter_s']:.0f} env steps/s",
+                      flush=True)
+                if best >= PPO_CATCH_BAR:
+                    break
+            runner0 = algo.runners[0]
+        finally:
+            algo.stop()
+        check(best >= PPO_CATCH_BAR, f"19(b): pixel PPO reached {best:.3f} "
+                                     f"in {its} iterations, not "
+                                     f"{PPO_CATCH_BAR}")
+        try:
+            rt.get(runner0.sample.remote(anchor.get_weights()), timeout=60)
+            dead = "alive"
+        except rt.exceptions.ActorDiedError:
+            dead = "ActorDiedError"
+        check(dead == "ActorDiedError", f"19(b): after stop() a runner is "
+                                        f"{dead}")
+        # the held iterations' walls include the CPU learner's update
+        times["PPO (Catch)"] = statistics.median(
+            walls[RL_HELD_UPDATES:] or walls)
+        print(f"  (b) PPO on pixel Catch: best return mean {best:.3f} in "
+              f"{its} iterations (bar {PPO_CATCH_BAR}); the first "
+              f"{len(held)} updates held to a CPU learner: max rel |d "
+              f"loss| {max(held):.3e}; ms an iteration p50 "
+              f"{times['PPO (Catch)'] * 1e3:.1f}, the first "
+              f"{walls[0] * 1e3:.1f}; after stop() a runner call raises "
+              f"{dead}", flush=True)
+        del algo, lrn, anchor
+
+        # (c) IMPALA learns pixel Catch
+        algo = algos.pop("IMPALA (Catch)")
+        check(isinstance(algo.learner.module, rl_module.CNNModule)
+              and _on(algo.learner.module, dev),
+              "19(c): the learner is not the conv module on the card")
+        clock = _Clock(algo.learner, "get_weights", "update")
+        best, its, walls, flight = -1.0, 0, [], []
+        try:
+            for its in range(1, IMPALA_CATCH_ITERS + 1):
+                r = algo.train()
+                c = clock.take()
+                flight.append(len(algo._inflight) == 2 and set(
+                    map(id, algo._inflight.values())) == set(
+                        map(id, algo.runners)))
+                best = max(best, r["episode_return_mean"])
+                walls.append(r["time_this_iter_s"])
+                if its % 5 == 1 or best >= IMPALA_CATCH_BAR:
+                    print(f"  (c) IMPALA iteration {its}: return mean "
+                          f"{r['episode_return_mean']:.3f}, "
+                          f"{_split_line(r, c)}, "
+                          f"{8 * 32 * 16 / r['time_this_iter_s']:.0f} env "
+                          f"steps/s", flush=True)
+                if best >= IMPALA_CATCH_BAR:
+                    break
+        finally:
+            algo.stop()
+        check(all(flight), f"19(c): a runner without exactly one sample in "
+                           f"flight after train(): {flight}")
+        check(best >= IMPALA_CATCH_BAR, f"19(c): pixel IMPALA reached "
+                                        f"{best:.3f} in {its} iterations, "
+                                        f"not {IMPALA_CATCH_BAR}")
+        times["IMPALA (Catch)"] = statistics.median(walls[1:] or walls)
+        print(f"  (c) IMPALA on pixel Catch: best return mean {best:.3f} "
+              f"in {its} iterations (bar {IMPALA_CATCH_BAR}); one sample "
+              f"in flight a runner after every train(); ms an iteration "
+              f"p50 {times['IMPALA (Catch)'] * 1e3:.1f}", flush=True)
+        del algo
+
+        # (d) the other drivers, 3 iterations past learning_starts
+        others = [("APPO (Catch)", "update", "pg_loss"),
+                  ("DQN (CartPole)", "update_many", "loss"),
+                  ("DQN prioritized (CartPole)", "update_many", "loss"),
+                  ("SAC (Pendulum)", "update_many", "q_loss")]
+        for what, upd, key in others:
+            algo = algos.pop(what)
+            lrn = algo.learner
+            mods = [lrn.actor, lrn.critic] if hasattr(lrn, "critic") \
+                else [lrn.module]
+            check(all(_on(m, dev) for m in mods),
+                  f"19(d): {what}: the learner's parameters are not on "
+                  f"{dev}")
+            clock = _Clock(lrn, "get_weights", upd)
+            before, rows, walls = [], [], []
+            try:
+                while len(rows) < 3 and len(before) < 10:
+                    r = algo.train()
+                    c = clock.take()
+                    if c["n_" + upd] == 0:
+                        before.append(r)
+                        continue
+                    rows.append(r)
+                    walls.append(r["time_this_iter_s"])
+                    print(f"  (d) {what} iteration "
+                          f"{r['training_iteration']}: {key} {r[key]:.4f}, "
+                          f"{_split_line(r, c, upd)}", flush=True)
+                buf = getattr(algo, "buffer", None)
+                prio = (buf._prio[:len(buf)].copy()
+                        if hasattr(buf, "_prio") else None)
+            finally:
+                algo.stop()
+            losses = [v for r in rows for k, v in r.items()
+                      if k.endswith("loss")]
+            check(len(rows) == 3 and all(np.isfinite(losses)),
+                  f"19(d): {what}: {len(rows)} iterations past "
+                  f"learning_starts, losses {losses}")
+            if what.startswith("DQN"):
+                check(len(before) >= 1 and all(np.isnan(r["loss"])
+                                               for r in before),
+                      f"19(d): {what}: the iterations before "
+                      f"learning_starts report {before}")
+            if prio is not None:
+                moved = int((prio != 1.0).sum())
+                check(moved > 0 and len(np.unique(prio)) > 1,
+                      f"19(d): {what}: no priority moved by the TD errors")
+                print(f"  (d) {what}: {moved} of {len(prio)} priorities "
+                      f"set from TD errors (max {prio.max():.3f})",
+                      flush=True)
+            times[what] = statistics.median(walls)
+            del algo, lrn
+
+        # (e) multi-agent PPO with a frozen policy
+        algo = algos.pop("MultiAgentPPO (Coordination)")
+        lrns = algo.learners
+        check(all(_on(ln.module, dev) for ln in lrns.values()),
+              "19(e): a policy's learner is not on the card")
+        w0 = {pid: rl_module.tree_leaves(ln.get_weights())
+              for pid, ln in lrns.items()}
+        walls = []
+        try:
+            for _ in range(3):
+                r = algo.train()
+                walls.append(r["time_this_iter_s"])
+            ret = algo.evaluate()
+        finally:
+            algo.stop()
+        w1 = {pid: rl_module.tree_leaves(ln.get_weights())
+              for pid, ln in lrns.items()}
+        frozen = all(np.array_equal(w1["p1"][k], w0["p1"][k])
+                     for k in w0["p1"])
+        moved = sum(not np.array_equal(w1["p0"][k], w0["p0"][k])
+                    for k in w0["p0"])
+        check(frozen and moved > 0 and not any(k.startswith("p1/")
+                                               for k in r),
+              f"19(e): frozen p1 equal {frozen}, {moved} leaves of p0 moved, "
+              f"keys {sorted(r)}")
+        times["MultiAgentPPO (Coordination)"] = statistics.median(walls)
+        print(f"  (e) MultiAgentPPO, p0 trained, p1 frozen: p1's weights "
+              f"equal bit for bit after 3 iterations, {moved} of "
+              f"{len(w0['p0'])} leaves of p0 moved; p0 pg_loss "
+              f"{r['p0/pg_loss']:.4f}; greedy return {ret:.2f}", flush=True)
+        del algo, lrns
+
+        # (f) DreamerV3 on CartPole, in this process
+        cfg = (rllib.DreamerV3Config().environment("CartPole-v1")
+               .env_runners(num_envs_per_env_runner=8).debugging(seed=0)
+               .learners(device=device))
+        cfg.train_kwargs.update(learning_starts=256, steps_per_iter=32)
+        algo = cfg.build()
+        lrn = algo.learner
+        check(lrn.device.type == dev.type and _on(lrn.wm, dev)
+              and _on(lrn.ac, dev),
+              f"19(f): the DreamerV3 learner is on {lrn.device}")
+        clock = _Clock(lrn, "act", "update")
+        rows = []
+        for _ in range(3):
+            rows.append((algo.train(), clock.take()))
+        metrics = [v for r, _ in rows for k, v in r.items()
+                   if k not in ("iteration", "env_steps")]
+        check(all(np.isfinite(metrics)) and rows[-1][1]["n_update"] > 0,
+              f"19(f): DreamerV3 metrics {rows}")
+        acts = sum(c["act"] for _, c in rows) / sum(c["n_act"]
+                                                   for _, c in rows)
+        ups = sum(c["update"] for _, c in rows) / sum(c["n_update"]
+                                                     for _, c in rows)
+        for r, c in rows:
+            print(f"  (f) DreamerV3 iteration {r['iteration']}: "
+                  f"{c['n_act']} acts, {c['n_update']} updates, wm_loss "
+                  f"{r.get('wm_loss', float('nan')):.4f}", flush=True)
+        print(f"  (f) DreamerV3: {acts * 1e3:.3f} ms an act (8 envs), "
+              f"{ups * 1e3:.3f} ms an update (batch 8 x 16)", flush=True)
+        algo.stop()
+        del algo, lrn
+    finally:
+        rt.shutdown()
+    n = counters()
+    check(not any(n.values()), f"19: attention kernels launched: {n}")
+    for what, s in times.items():
+        print(f"  {what}: {s * 1e3:.1f} ms an iteration (p50)", flush=True)
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + 60
+        while True:
+            free = torch.cuda.mem_get_info()[0]
+            if free >= free0 - (1 << 30) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        check(free >= free0 - (1 << 30),
+              f"19: after shutdown() the card has {free / 2**30:.2f} GiB "
+              f"free, {free0 / 2**30:.2f} before")
+        print(f"  after shutdown(): {free / 2**30:.2f} GiB free on the "
+              f"card, {free0 / 2**30:.2f} before", flush=True)
+    print(f"  phase 19 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return times
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -5418,7 +5949,7 @@ def main() -> None:
           "Llama-3-8B bf16, both engines with mesh={tp 1}", flush=True)
     tp_serve = tp_serve_phase(dev, phase3)
     print("phase 13: sharded checkpoints and the predictor (Llama-3-8B "
-          "width, 8 layers), then the disaggregated engine and page "
+          f"width, {CKPT_LAYERS} layers), then the disaggregated engine and page "
           "export/import with mesh={tp 1}", flush=True)
     ckpt = checkpoint_phase(dev)
     tp_disagg = tp_disagg_phase(dev, disagg_fp32, disagg)
@@ -5446,6 +5977,10 @@ def main() -> None:
           "under ASHA fed from TFRecords, a trial killed and resumed, a "
           "Tuner over a TorchTrainer", flush=True)
     swept = tune_phase(dev, families["gpt2"]["losses"])
+    print("phase 19: the RLlib drivers on the card: EnvRunner gangs on CPU "
+          "actors, PPO and IMPALA learning pixel Catch, APPO, DQN, SAC, "
+          "multi-agent PPO, DreamerV3", flush=True)
+    rl_drivers_phase(dev)
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama

@@ -21,7 +21,9 @@ has an obvious counterpart:
     runtime: runtime.py, worker_proc.py, the shm object store, placement
     groups, with GPUs as a resource), util/
     rllib/rl_module.py, learner.py, impala.py, appo.py, dqn.py,
-    sac.py, offline.py (the learners)
+    sac.py, offline.py, dreamer.py (the learners, and the drivers:
+    algorithm.py, ppo.py, env_runner.py, envs.py, replay_buffer.py,
+    catalog.py, multi_agent.py)
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of silently running on

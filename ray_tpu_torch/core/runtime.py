@@ -227,6 +227,19 @@ def _fd_readable(fd, timeout) -> bool:
     return bool(p.poll(ms))
 
 
+# Connections the driver's socket queues before its accept loop takes
+# them. Cold-spawned workers connect at once, two connections each; at
+# Listener's default of 1 a burst overflows the queue, and where a full
+# queue refuses a connect (gVisor: EAGAIN, as Linux does for a
+# non-blocking one) the worker dies before its hello.
+LISTEN_BACKLOG = 128
+
+
+def listen(path: str) -> Listener:
+    """The driver's AF_UNIX listener on ``path``."""
+    return Listener(path, family="AF_UNIX", backlog=LISTEN_BACKLOG)
+
+
 def _pidfd_supported() -> bool:
     """Whether this kernel gives ``os.pidfd_open``, which ``_ForkedProc``
     needs to watch a zygote fork."""
@@ -549,7 +562,7 @@ class Runtime:
         # no authkey on the listener: the HMAC handshake runs bounded in
         # a per-connection thread (a child dying mid-handshake must not
         # wedge the accept loop — see rpc._timed_handshake)
-        self._listener = Listener(self._sock_path, family="AF_UNIX")
+        self._listener = listen(self._sock_path)
         self._accept_thread = threading.Thread(
             target=self._accept_loop, daemon=True, name="rtpu-accept"
         )

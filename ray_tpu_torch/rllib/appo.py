@@ -5,8 +5,8 @@ Counterpart of ``AppoLearner`` in ``ray_tpu/rllib/appo.py``: V-trace
 advantages come from the TARGET ("old") policy's outputs, the PPO ratio
 is corrected by the behaviour-to-target importance ratio clipped to
 [0, 2], and the target network copies the live weights every
-``target_update_freq`` updates. The ``APPO`` driver waits for the
-port's actor runtime.
+``target_update_freq`` updates. The ``APPO`` driver is the IMPALA
+runner gang with this learner, as RLlib's APPO subclasses IMPALA.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ray_tpu_torch.rllib.impala import ImpalaLearner
+from ray_tpu_torch.rllib.impala import (IMPALA, IMPALAConfig,
+                                        ImpalaLearner)
 from ray_tpu_torch.rllib.learner import entropy, frozen_copy
 
 
@@ -68,3 +69,24 @@ class AppoLearner(ImpalaLearner):
         if self._updates % self._target_update_freq == 0:
             self.target.load_state_dict(self.module.state_dict())
         return out
+
+
+class APPOConfig(IMPALAConfig):
+    def __init__(self):
+        super().__init__()
+        self.lr = 3e-4
+        self.train_kwargs = {
+            "vf_coef": 0.5, "ent_coef": 0.01, "rho_bar": 1.0,
+            "c_bar": 1.0, "max_grad_norm": 40.0,
+            "clip_param": 0.4, "target_update_freq": 8,
+            "batches_per_iter": 8,
+        }
+
+    def build(self) -> "APPO":
+        return APPO(self)
+
+
+class APPO(IMPALA):
+    """IMPALA runner gang + APPO learner."""
+
+    LEARNER_CLS = AppoLearner

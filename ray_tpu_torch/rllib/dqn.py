@@ -4,22 +4,32 @@ prioritized-replay weights and a Polyak target.
 Counterpart of ``DQNLearner`` in ``ray_tpu/rllib/dqn.py``. The
 reference runs a train iteration's U minibatch updates in one jitted
 ``lax.scan``; here ``update_many`` loops over them on the learner's
-device and brings the losses and TD errors to the host once. The
-``DQN`` driver and its replay buffers wait for the port's actor
-runtime.
+device and brings the losses and TD errors to the host once.
+
+The ``DQN`` driver: an ``OffPolicyRunner`` gang collects epsilon-greedy
+transitions (epsilon decays linearly with the env steps) into a replay
+buffer on the driver; once ``learning_starts`` transitions are in, each
+iteration samples ``updates_per_iter`` stacked minibatches and runs
+them through ``update_many``, and prioritized replay takes its new
+priorities from the returned TD errors.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
+import ray_tpu_torch
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, RunnerDriver
 from ray_tpu_torch.rllib.learner import (Adam, apply_grads, batch_to_device,
                                          frozen_copy, polyak_)
-from ray_tpu_torch.rllib.rl_module import (params_from_numpy, resolve_device,
-                                           to_numpy)
+from ray_tpu_torch.rllib.replay_buffer import (PrioritizedReplayBuffer,
+                                               ReplayBuffer)
+from ray_tpu_torch.rllib.rl_module import (QMLPModule, params_from_numpy,
+                                           resolve_device, to_numpy)
 
 
 def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -84,3 +94,99 @@ class DQNLearner:
 
     def get_weights(self):
         return to_numpy(self.module)
+
+
+class DQNConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__()
+        self.lr = 1e-3
+        self.num_env_runners = 2
+        self.num_envs_per_runner = 8
+        self.rollout_len = 32           # steps per runner per iteration
+        self.module_hidden = (128, 128)
+        self.train_kwargs = {
+            "buffer_size": 50_000,
+            "learning_starts": 1_000,
+            "batch_size": 64,
+            "updates_per_iter": 16,
+            "tau": 0.01,
+            "epsilon_initial": 1.0,
+            "epsilon_final": 0.05,
+            "epsilon_decay_steps": 10_000,
+            "prioritized_replay": False,
+            "max_grad_norm": 10.0,
+        }
+
+    def build(self) -> "DQN":
+        return DQN(self)
+
+
+class DQN(RunnerDriver):
+    def __init__(self, config: DQNConfig):
+        from ray_tpu_torch.rllib.env_runner import OffPolicyRunner
+        from ray_tpu_torch.rllib.envs import make_env
+
+        self.config = config
+        kw = config.train_kwargs
+        probe = make_env(config.env_name, 1)
+        self.module_spec = {"obs_dim": probe.obs_dim,
+                            "num_actions": probe.num_actions,
+                            "hidden": config.module_hidden}
+        self.learner = DQNLearner(QMLPModule(**self.module_spec),
+                                  lr=config.lr, gamma=config.gamma,
+                                  tau=kw["tau"],
+                                  max_grad_norm=kw["max_grad_norm"],
+                                  seed=config.seed,
+                                  device=config.learner_device)
+        if kw["prioritized_replay"]:
+            self.buffer = PrioritizedReplayBuffer(kw["buffer_size"],
+                                                  seed=config.seed)
+        else:
+            self.buffer = ReplayBuffer(kw["buffer_size"], seed=config.seed)
+        self.runners = [
+            OffPolicyRunner.remote(config.env_name,
+                                   config.num_envs_per_runner,
+                                   self.module_spec, kind="dqn",
+                                   seed=config.seed + 1000 * i)
+            for i in range(config.num_env_runners)
+        ]
+        self._init_driver()
+
+    def _epsilon(self) -> float:
+        kw = self.config.train_kwargs
+        frac = min(1.0, self.env_steps / kw["epsilon_decay_steps"])
+        return kw["epsilon_initial"] + frac * (
+            kw["epsilon_final"] - kw["epsilon_initial"])
+
+    def train(self) -> Dict[str, Any]:
+        t0 = time.perf_counter()
+        kw = self.config.train_kwargs
+        weights = self.learner.get_weights()
+        w_ref = ray_tpu_torch.put(weights)
+        eps = self._epsilon()
+        batches = ray_tpu_torch.get(
+            [r.sample_transitions.remote(w_ref, self.config.rollout_len,
+                                         epsilon=eps)
+             for r in self.runners], timeout=300)
+        for b in batches:
+            self._record_returns(b)
+            self.env_steps += len(b["rewards"])
+            self.buffer.add_batch(b)
+
+        loss = float("nan")
+        if len(self.buffer) >= kw["learning_starts"]:
+            stacked = self.buffer.sample_many(kw["updates_per_iter"],
+                                              kw["batch_size"])
+            indices = stacked.pop("_indices", None)
+            loss, tds = self.learner.update_many(stacked)
+            if indices is not None:
+                self.buffer.update_priorities(indices, tds)
+        self.iteration += 1
+        return {
+            "training_iteration": self.iteration,
+            "episode_return_mean": self._mean_return(),
+            "num_env_steps_sampled": self.env_steps,
+            "epsilon": eps,
+            "loss": loss,
+            "time_this_iter_s": time.perf_counter() - t0,
+        }

@@ -19,20 +19,29 @@ noise of each categorical (``jax.random.categorical`` is the argmax of
 logits plus Gumbel noise) and the start-state pick (the first
 ``imag_starts`` entries of a permutation, as ``jax.random.choice``
 without replacement makes it). A caller can so feed the draws the
-reference's keys make. The ``DreamerV3`` driver and its sequence replay
-wait for the port's runtime with the other RLlib drivers.
+reference's keys make.
+
+The ``DreamerV3`` driver collects in-process (the policy is recurrent):
+one ``act`` on the learner's device per env step, a per-env sequence
+replay (``_SeqReplay``, the reference's numpy generator), one
+``update`` per ``update_every`` steps past ``learning_starts``. Where
+the reference splits a JAX key for each ``act`` and ``update``, their
+``noise`` comes from the learner's own ``torch.Generator`` (seeded from
+``config.seed`` on the learner's device).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfig
+from ray_tpu_torch.rllib.envs import make_env
 from ray_tpu_torch.rllib.learner import Adam, apply_grads, batch_to_device
 from ray_tpu_torch.rllib.rl_module import (_Dense, _tree, params_from_numpy,
                                            resolve_device, to_numpy,
@@ -397,6 +406,13 @@ class DreamerV3Learner:
                                          device=self.device)[:N]
         return out
 
+    def act_noise(self, n: int) -> Dict[str, torch.Tensor]:
+        """One ``act``'s draws for ``n`` envs from the learner's generator,
+        in ``act``'s ``noise`` layout."""
+        return {"post": gumbel((n, self.V, self.K), self._gen, self.device),
+                "act": gumbel((n, self.num_actions), self._gen,
+                              self.device)}
+
     def update(self, batch: Dict[str, np.ndarray],
                noise: Optional[Dict] = None) -> Dict[str, float]:
         """One world-model step, then one actor-critic step in the updated
@@ -447,12 +463,8 @@ class DreamerV3Learner:
         obs = torch.as_tensor(np.asarray(obs, np.float32)).to(self.device)
         first = torch.as_tensor(np.asarray(is_first, np.float32)).to(
             self.device)
-        n = obs.shape[0]
         if noise is None:
-            noise = {"post": gumbel((n, self.V, self.K), self._gen,
-                                    self.device),
-                     "act": gumbel((n, self.num_actions), self._gen,
-                                   self.device)}
+            noise = self.act_noise(obs.shape[0])
         noise = {k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
                  for k, v in noise.items()}
         emb = _mlp(self.wm["enc"], symlog(obs))
@@ -467,3 +479,169 @@ class DreamerV3Learner:
         return (torch.zeros((n, self.deter), device=self.device),
                 torch.zeros((n, self.z_dim), device=self.device),
                 torch.zeros((n,), dtype=torch.int32, device=self.device))
+
+
+class _SeqReplay:
+    """Per-env contiguous streams; samples length-L windows (is_first
+    flags let the RSSM reset across episode boundaries inside a
+    window). The reference's numpy ring, drawn from the caller's numpy
+    generator."""
+
+    def __init__(self, num_envs: int, obs_dim: int, capacity: int = 4096):
+        self.cap = capacity
+        self.n = num_envs
+        self.obs = np.zeros((num_envs, capacity, obs_dim), np.float32)
+        self.act = np.zeros((num_envs, capacity), np.int32)
+        self.rew = np.zeros((num_envs, capacity), np.float32)
+        self.done = np.zeros((num_envs, capacity), np.float32)
+        self.first = np.zeros((num_envs, capacity), np.float32)
+        self.ptr = 0
+        self.full = False
+
+    def add(self, obs, act, rew, done, first):
+        i = self.ptr % self.cap
+        self.obs[:, i] = obs
+        self.act[:, i] = act
+        self.rew[:, i] = rew
+        self.done[:, i] = done
+        self.first[:, i] = first
+        self.ptr += 1
+        if self.ptr >= self.cap:
+            self.full = True
+
+    def __len__(self):
+        return min(self.ptr, self.cap)
+
+    def sample(self, rng, batch: int, length: int) -> Dict[str, np.ndarray]:
+        size = len(self)
+        assert size >= length
+        envs = rng.integers(0, self.n, batch)
+        # windows must not straddle the ring's write head
+        if self.full:
+            # inclusive bound: offset size-length is the newest valid
+            # non-straddling window, and excluding it degenerates to an
+            # empty range when capacity == length
+            offs = rng.integers(0, size - length + 1, batch)
+            starts = (self.ptr + offs) % self.cap
+        else:
+            starts = rng.integers(0, size - length + 1, batch)
+        idx = (starts[:, None] + np.arange(length)[None]) % self.cap
+        out = {"obs": self.obs[envs[:, None], idx],
+               "actions": self.act[envs[:, None], idx],
+               "rewards": self.rew[envs[:, None], idx],
+               "dones": self.done[envs[:, None], idx],
+               "is_first": self.first[envs[:, None], idx]}
+        # the window's first element always resets the RSSM state (the
+        # state before the window is unknown)
+        out["is_first"][:, 0] = 1.0
+        return out
+
+
+class DreamerV3Config(AlgorithmConfig):
+    def __init__(self):
+        super().__init__()
+        self.lr = 4e-4
+        self.num_envs_per_runner = 8
+
+    def build(self) -> "DreamerV3":
+        return DreamerV3(self)
+
+
+class DreamerV3:
+    """Algorithm driver: collect with the recurrent policy, train the
+    world model + imagination actor-critic (train() = one iteration of
+    ``steps_per_iter`` env batches)."""
+
+    def __init__(self, config: DreamerV3Config):
+        kw = config.train_kwargs
+        self.env = make_env(config.env_name, config.num_envs_per_runner,
+                            seed=config.seed)
+        self.learner = DreamerV3Learner(
+            self.env.obs_dim, self.env.num_actions,
+            lr=config.lr, ac_lr=kw.get("ac_lr", 1e-4),
+            gamma=config.gamma, horizon=kw.get("horizon", 10),
+            entropy=kw.get("entropy", 1e-3),
+            lam=kw.get("lam", 0.95), unimix=kw.get("unimix", 0.01),
+            free_bits=kw.get("free_bits", 1.0),
+            deter=kw.get("deter", 128), units=kw.get("units", 128),
+            stoch_vars=kw.get("stoch_vars", 8),
+            stoch_classes=kw.get("stoch_classes", 8),
+            imag_starts=kw.get("imag_starts", 64),
+            seed=config.seed, device=config.learner_device)
+        self.replay = _SeqReplay(config.num_envs_per_runner,
+                                 self.env.obs_dim,
+                                 capacity=kw.get("replay_capacity", 4096))
+        self.batch_size = kw.get("batch_size", 8)
+        self.seq_len = kw.get("seq_len", 16)
+        self.learning_starts = kw.get("learning_starts", 128)
+        self.steps_per_iter = kw.get("steps_per_iter", 64)
+        self.updates_per_step = kw.get("updates_per_step", 1)
+        self.update_every = kw.get("update_every", 1)  # env steps/update
+        self._since_update = 0
+        self.rng = np.random.default_rng(config.seed)
+        self._obs = self.env.reset()
+        self._state = self.learner.init_state(self.env.n)
+        self._first = np.ones(self.env.n, np.float32)
+        self.env_steps = 0
+        self.iteration = 0
+        self._ep_ret = np.zeros(self.env.n)
+        self._recent: list = []
+
+    def train(self) -> Dict[str, Any]:
+        metrics: Dict[str, Any] = {}
+        for _ in range(self.steps_per_iter):
+            state, acts = self.learner.act(self._state, self._obs,
+                                           self._first)
+            obs2, rews, terminated, truncated = self.env.step(acts)
+            reset = terminated | truncated
+            # the continue head's target is 1-terminated ONLY: a time
+            # limit is not death, and the following is_first already
+            # resets the RSSM across the auto-reset boundary
+            self.replay.add(self._obs, acts, rews,
+                            terminated.astype(np.float32), self._first)
+            self._ep_ret += rews
+            for i in np.nonzero(reset)[0]:
+                self._recent.append(self._ep_ret[i])
+                self._ep_ret[i] = 0.0
+            self._first = reset.astype(np.float32)
+            self._obs = obs2
+            self._state = state
+            self.env_steps += self.env.n
+            self._since_update += 1
+            if (len(self.replay) * self.env.n >= self.learning_starts
+                    and len(self.replay) >= self.seq_len
+                    and self._since_update >= self.update_every):
+                self._since_update = 0
+                for _ in range(self.updates_per_step):
+                    batch = self.replay.sample(self.rng, self.batch_size,
+                                               self.seq_len)
+                    metrics = self.learner.update(batch)
+        self.iteration += 1
+        self._recent = self._recent[-100:]
+        out = {"iteration": self.iteration, "env_steps": self.env_steps,
+               "episode_return_mean": (float(np.mean(self._recent))
+                                       if self._recent else 0.0)}
+        out.update(metrics)
+        return out
+
+    def evaluate(self, num_episodes: int = 8) -> float:
+        # evaluate on a fresh copy of the training env class
+        env = type(self.env)(num_episodes, seed=1234)
+        obs = env.reset()
+        state = self.learner.init_state(num_episodes)
+        first = np.ones(num_episodes, np.float32)
+        rets = np.zeros(num_episodes)
+        alive = np.ones(num_episodes, bool)
+        for _ in range(env.max_steps):
+            state, acts = self.learner.act(state, obs, first, greedy=True)
+            obs, rews, terminated, truncated = env.step(acts)
+            done = terminated | truncated
+            rets += rews * alive
+            first = done.astype(np.float32)
+            alive &= ~done
+            if not alive.any():
+                break
+        return float(rets.mean())
+
+    def stop(self):
+        pass

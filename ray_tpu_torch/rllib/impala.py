@@ -3,22 +3,31 @@ eqs. (1)-(4)).
 
 Counterpart of ``ImpalaLearner`` in ``ray_tpu/rllib/impala.py``. The
 reference's reversed ``lax.scan`` for the v_s recursion is a reverse
-loop over the T time steps on the learner's device. The ``IMPALA``
-driver (one in-flight rollout per EnvRunner actor) needs the task and
-actor runtime, which the port does not have yet.
+loop over the T time steps on the learner's device.
+
+The ``IMPALA`` driver is the asynchronous actor-learner: each EnvRunner
+always has one ``sample_sequences()`` in flight; the driver waits for
+ANY runner's time-major batch (``ray_tpu_torch.wait``), resubmits that
+runner at once with the learner's current weights, and updates the
+learner with the batch (V-trace corrects the policy lag).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import time
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
+from ray_tpu_torch.rllib.algorithm import (AlgorithmConfig, RunnerDriver,
+                                           module_spec_of)
 from ray_tpu_torch.rllib.learner import (Adam, apply_grads, batch_to_device,
                                          entropy, select_logp)
-from ray_tpu_torch.rllib.rl_module import (params_from_numpy, resolve_device,
+from ray_tpu_torch.rllib.rl_module import (build_pv_module,
+                                           params_from_numpy, resolve_device,
                                            to_numpy)
 
 
@@ -113,3 +122,91 @@ class ImpalaLearner:
 
     def get_weights(self):
         return to_numpy(self.module)
+
+
+class IMPALAConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__()
+        self.lr = 6e-4
+        self.num_env_runners = 2
+        self.num_envs_per_runner = 8
+        self.rollout_len = 40
+        self.train_kwargs = {
+            "vf_coef": 0.5, "ent_coef": 0.01, "rho_bar": 1.0,
+            "c_bar": 1.0, "max_grad_norm": 40.0,
+            "batches_per_iter": 8,
+        }
+
+    def build(self) -> "IMPALA":
+        return IMPALA(self)
+
+
+class IMPALA(RunnerDriver):
+    """Async driver: one in-flight rollout per runner, the learner
+    consumes batches in completion order (the IMPALA architecture)."""
+
+    LEARNER_CLS = ImpalaLearner
+
+    def __init__(self, config: IMPALAConfig):
+        from ray_tpu_torch.rllib.env_runner import EnvRunner
+        from ray_tpu_torch.rllib.envs import make_env
+
+        self.config = config
+        kw = dict(config.train_kwargs)
+        self._batches_per_iter = kw.pop("batches_per_iter")
+        self.module_spec = module_spec_of(make_env(config.env_name, 1),
+                                          config.module_hidden)
+        self.learner = self.LEARNER_CLS(build_pv_module(self.module_spec),
+                                        lr=config.lr, gamma=config.gamma,
+                                        seed=config.seed,
+                                        device=config.learner_device, **kw)
+        self.runners = [
+            EnvRunner.remote(config.env_name, config.num_envs_per_runner,
+                             config.rollout_len, self.module_spec,
+                             seed=config.seed + 1000 * i)
+            for i in range(config.num_env_runners)
+        ]
+        self._inflight: Dict[Any, Any] = {}   # ref -> runner
+        self._init_driver()
+
+    def _submit(self, runner) -> None:
+        w_ref = ray_tpu_torch.put(self.learner.get_weights())
+        ref = runner.sample_sequences.remote(w_ref)
+        self._inflight[ref] = runner
+
+    def train(self) -> Dict[str, Any]:
+        t0 = time.perf_counter()
+        for r in self.runners:
+            if r not in self._inflight.values():
+                self._submit(r)
+        accum: Dict[str, List[float]] = {}
+        for _ in range(self._batches_per_iter):
+            ready, _ = ray_tpu_torch.wait(list(self._inflight),
+                                          num_returns=1, timeout=300)
+            if not ready:
+                raise TimeoutError(
+                    "no EnvRunner rollout completed within 300s "
+                    f"({len(self._inflight)} in flight)")
+            ref = ready[0]
+            runner = self._inflight.pop(ref)
+            batch = ray_tpu_torch.get(ref)
+            self._submit(runner)   # immediately refill with fresh weights
+            self._record_returns(batch)
+            self.env_steps += batch["rewards"].size
+            for k, v in self.learner.update(batch).items():
+                accum.setdefault(k, []).append(v)
+        metrics = {k: float(np.mean(v)) for k, v in accum.items()}
+        self.iteration += 1
+        return {
+            "training_iteration": self.iteration,
+            "episode_return_mean": self._mean_return(),
+            "num_env_steps_sampled": self.env_steps,
+            "time_this_iter_s": time.perf_counter() - t0,
+            **metrics,
+        }
+
+    def _eval_runner(self):
+        # prefer a runner with no sample in flight
+        busy = set(self._inflight.values())
+        return next((r for r in self.runners if r not in busy),
+                    self.runners[0])

@@ -7,23 +7,32 @@ reference draws its Gaussian noise with ``jax.random`` inside the
 jitted scan; here ``update_many`` draws it from the learner's generator
 as one tensor ``[U, 2, B, D]`` (per update: the critic target's draw,
 then the actor's) and passes it to the update, so a caller can feed
-any draws, ``jax.random``'s included. The ``SAC`` driver waits for the
-port's actor runtime.
+any draws, ``jax.random``'s included.
+
+The ``SAC`` driver: an ``OffPolicyRunner(kind="sac")`` gang samples the
+squashed Gaussian into a replay buffer on the driver; past
+``learning_starts`` each iteration runs ``updates_per_iter`` stacked
+minibatches through ``update_many``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, RunnerDriver
 from ray_tpu_torch.rllib.learner import (Adam, apply_grads, batch_to_device,
                                          frozen_copy, polyak_)
-from ray_tpu_torch.rllib.rl_module import (params_from_numpy, resolve_device,
-                                           to_numpy)
+from ray_tpu_torch.rllib.replay_buffer import ReplayBuffer
+from ray_tpu_torch.rllib.rl_module import (SquashedGaussianModule,
+                                           TwinQModule, params_from_numpy,
+                                           resolve_device, to_numpy)
 
 _LOG_2PI = math.log(2 * math.pi)
 _LOG_2 = math.log(2.0)
@@ -126,3 +135,83 @@ class SACLearner:
 
     def get_weights(self):
         return to_numpy(self.actor)
+
+
+class SACConfig(AlgorithmConfig):
+    def __init__(self):
+        super().__init__()
+        self.env_name = "Pendulum-v1"
+        self.lr = 3e-4
+        self.num_env_runners = 2
+        self.num_envs_per_runner = 8
+        self.rollout_len = 16
+        self.module_hidden = (128, 128)
+        self.train_kwargs = {
+            "buffer_size": 100_000,
+            "learning_starts": 1_000,
+            "batch_size": 128,
+            "updates_per_iter": 16,
+            "tau": 0.005,
+            "init_alpha": 0.1,
+        }
+
+    def build(self) -> "SAC":
+        return SAC(self)
+
+
+class SAC(RunnerDriver):
+    def __init__(self, config: SACConfig):
+        from ray_tpu_torch.rllib.env_runner import OffPolicyRunner
+        from ray_tpu_torch.rllib.envs import make_env
+
+        self.config = config
+        kw = config.train_kwargs
+        probe = make_env(config.env_name, 1)
+        self.module_spec = {
+            "obs_dim": probe.obs_dim, "action_dim": probe.action_dim,
+            "action_low": probe.action_low, "action_high": probe.action_high,
+            "hidden": config.module_hidden,
+        }
+        actor = SquashedGaussianModule(**self.module_spec)
+        critic = TwinQModule(probe.obs_dim, probe.action_dim,
+                             hidden=config.module_hidden)
+        self.learner = SACLearner(actor, critic, lr=config.lr,
+                                  gamma=config.gamma, tau=kw["tau"],
+                                  init_alpha=kw["init_alpha"],
+                                  seed=config.seed,
+                                  device=config.learner_device)
+        self.buffer = ReplayBuffer(kw["buffer_size"], seed=config.seed)
+        self.runners = [
+            OffPolicyRunner.remote(config.env_name,
+                                   config.num_envs_per_runner,
+                                   self.module_spec, kind="sac",
+                                   seed=config.seed + 1000 * i)
+            for i in range(config.num_env_runners)
+        ]
+        self._init_driver()
+
+    def train(self) -> Dict[str, Any]:
+        t0 = time.perf_counter()
+        kw = self.config.train_kwargs
+        w_ref = ray_tpu_torch.put(self.learner.get_weights())
+        batches = ray_tpu_torch.get(
+            [r.sample_transitions.remote(w_ref, self.config.rollout_len)
+             for r in self.runners], timeout=300)
+        for b in batches:
+            self._record_returns(b)
+            self.env_steps += len(b["rewards"])
+            self.buffer.add_batch(b)
+
+        metrics: Dict[str, float] = {}
+        if len(self.buffer) >= kw["learning_starts"]:
+            stacked = self.buffer.sample_many(kw["updates_per_iter"],
+                                              kw["batch_size"])
+            metrics = self.learner.update_many(stacked)
+        self.iteration += 1
+        return {
+            "training_iteration": self.iteration,
+            "episode_return_mean": self._mean_return(),
+            "num_env_steps_sampled": self.env_steps,
+            "time_this_iter_s": time.perf_counter() - t0,
+            **metrics,
+        }

@@ -513,6 +513,33 @@ def test_serialize_while_another_thread_imports_torch(monkeypatch):
     assert serialization._torch_uint8 is None
 
 
+def test_listener_queues_a_burst_of_worker_connects():
+    """Workers cold-spawned together connect at once, two connections
+    each, before the accept loop takes any: the driver's socket queues
+    them. A full queue refuses a non-blocking connect with EAGAIN (under
+    gVisor a blocking one too, and the worker dies before its hello); at
+    ``Listener``'s default backlog of 1 the third connect here is
+    refused."""
+    import socket
+
+    from ray_tpu_torch.core import runtime as rtm
+
+    path = os.path.join(tempfile.mkdtemp(prefix="rtpt_listen_"), "s")
+    lst = rtm.listen(path)
+    socks = []
+    try:
+        for _ in range(64):
+            s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            socks.append(s)
+            s.setblocking(False)
+            s.connect(path)   # BlockingIOError once the queue is full
+    finally:
+        for s in socks:
+            s.close()
+        lst.close()
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
 def test_worker_that_connects_before_its_spawner_returns():
     """A zygote fork can say hello before the spawning thread has run
     again (a loaded host); the runtime must already know its id, or it
