@@ -4,8 +4,9 @@ The port's copy of ``ray_tpu/api.py`` (itself mirroring the reference
 framework's python/ray/_private/worker.py — ray.init :1227, ray.get
 :2578, ray.put :2693, ray.wait :2758, ray.kill :2939) on the port's
 single-node runtime, with GPUs as a resource (``num_gpus`` on actors).
-Cluster mode (``address="host:port"``) and the thin client
-(``"ray://..."``) are refused until the port's ``core/cluster/`` lands.
+``init(address="host:port")`` connects to a cluster's GCS
+(``core/cluster/``) and ``init("ray://host:port")`` to a thin-client
+proxy (``client.py``).
 """
 
 from __future__ import annotations
@@ -28,11 +29,10 @@ def init(num_workers: Optional[int] = None,
          address: Optional[str] = None,
          log_to_driver: Optional[bool] = None,
          **kwargs):
-    """Start the local runtime (worker pool + shm object store).
-
-    ``address="host:port"`` (a cluster's GCS) and ``"ray://host:port"``
-    (the thin client) raise NotImplementedError: cluster mode is a later
-    slice of the port (ROADMAP.md section 1, item 5).
+    """Start the local runtime (worker pool + shm object store), or connect
+    to a running cluster when ``address="host:port"`` names its GCS
+    (reference: ray.init(address=...), python/ray/_private/worker.py:1227),
+    or to a thin-client proxy when it is ``"ray://host:port"``.
 
     Returns the runtime context. Safe to call twice with
     ``ignore_reinit_error`` (the default).
@@ -46,19 +46,23 @@ def init(num_workers: Optional[int] = None,
         # submitted jobs inherit the cluster address from the job agent
         address = os.environ.get("RTPU_ADDRESS")
     if address and address.startswith("ray://"):
-        raise NotImplementedError(
-            f"init(address={address!r}): the thin client is not ported "
-            "yet; it comes with cluster mode (ROADMAP.md section 1, item 5)")
-    if address:
-        raise NotImplementedError(
-            f"init(address={address!r}): cluster mode (core/cluster/) is "
-            "not ported yet (ROADMAP.md section 1, item 5); init() starts "
-            "the single-node runtime")
-    from ray_tpu_torch.core.runtime import Runtime
+        # thin-client mode through the multi-tenant proxy (reference:
+        # ray.init("ray://...") -> util/client; see client.py)
+        from ray_tpu_torch.client import ProxyCore
 
-    _runtime = Runtime(num_workers=num_workers,
-                       object_store_memory=object_store_memory,
-                       log_to_driver=log_to_driver)
+        host, _, port = address[len("ray://"):].rpartition(":")
+        _runtime = ProxyCore((host, int(port)))
+    elif address:
+        from ray_tpu_torch.core.cluster.cluster_core import ClusterCore
+
+        host, _, port = address.rpartition(":")
+        _runtime = ClusterCore((host, int(port)))
+    else:
+        from ray_tpu_torch.core.runtime import Runtime
+
+        _runtime = Runtime(num_workers=num_workers,
+                           object_store_memory=object_store_memory,
+                           log_to_driver=log_to_driver)
     runtime_context.set_core(_runtime)
     atexit.register(shutdown)
     return runtime_context.get_runtime_context()
@@ -193,12 +197,38 @@ def timeline(filename: Optional[str] = None):
     """Export recorded task events as a chrome://tracing trace (reference:
     ray.timeline, python/ray/_private/worker.py). Requires the
     RTPU_TASK_EVENTS_ENABLED=1 flag; returns the event list when no
-    filename is given. The single-node runtime's events only: the
-    cluster-wide merge comes with cluster mode."""
+    filename is given."""
     import json
 
     core = runtime_context.get_core()
     events = getattr(core, "_events", None)
+    if events is None and hasattr(core, "_cluster_view"):
+        # cluster driver: aggregate every node's flag-gated event log
+        # (reference: ray.timeline merges per-raylet task events)
+        from ray_tpu_torch.core.cluster.rpc import RpcClient, RpcError
+
+        events = None
+        for idx, n in enumerate(core._cluster_view(force=True)["nodes"]):
+            # dedicated short-timeout client: a freshly-dead node must
+            # cost ~2s, not the pooled client's full 10s connect retry
+            client = RpcClient(tuple(n["address"]), core._authkey,
+                               connect_timeout=2.0)
+            try:
+                node_events = client.call(("task_events",))
+            except RpcError:
+                continue
+            finally:
+                client.close()
+            if node_events is None:
+                continue  # recording disabled on that node
+            events = events if events is not None else []
+            nid = n["node_id"].hex()[:6] if hasattr(
+                n["node_id"], "hex") else str(n["node_id"])[:6]
+            for e in node_events:
+                # composite pid: same OS pid on different hosts must not
+                # merge into one chrome-trace process row
+                events.append({**e, "worker": f"{nid}:{e['worker']}",
+                               "pid": idx * (1 << 23) + int(e["pid"] or 0)})
     if events is None:
         raise RuntimeError(
             "task events are disabled; set RTPU_TASK_EVENTS_ENABLED=1 "

@@ -1,6 +1,12 @@
-"""Multi-node substrate. The port holds only ``rpc.py``'s ``RpcError``
-and the bounded HMAC handshake that the single-node runtime's accept
-loop runs. The RPC server and client, the wire contract, the GCS, node
-server, cluster core, HA, pull manager and the test fixture come with
-cluster mode.
+"""Multi-node substrate: GCS control plane, per-node servers, TCP RPC.
+
+The reference framework splits these across gcs_server
+(src/ray/gcs/gcs_server/), raylet (src/ray/raylet/) and the object
+manager (src/ray/object_manager/object_manager.h) talking gRPC; here the
+same capabilities ride a framed-pickle TCP transport (rpc.py) and each
+node embeds the single-node Runtime as its local scheduler. A node's
+``"GPU"`` resource is its detected ``GpuSet``; the ``Cluster`` fixture
+(fixture.py) gives cards only to the node ``add_node(gpus=...)`` names.
 """
+
+from ray_tpu_torch.core.cluster.fixture import Cluster  # noqa: F401

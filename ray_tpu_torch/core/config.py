@@ -20,8 +20,7 @@ The rows are those of the reference's table (``ray_tpu/core/config.py``)
 that port code reads, under the same ``RTPU_*`` variables, so one
 environment configures both packages; ``gpus`` takes the place of the
 TPU rows. The rows of the parts the port has not taken over yet (the
-cluster, the compiled DAGs, serve's router) come with the code that
-reads them.
+job agent, the autoscaler) come with the code that reads them.
 """
 
 from __future__ import annotations
@@ -264,6 +263,57 @@ _FLAGS: List[Flag] = [
          "non-blocking probes for at most this long before re-arming "
          "(a blocking get would head-of-line block the replica's "
          "serialized owner connection)."),
+    # ---- cluster plane ---------------------------------------------------
+    Flag("fetch_chunk_bytes", int, 16 << 20,
+         "Chunk size for ranged node-to-node object transfer "
+         "(reference: object manager 64MB chunked pushes)."),
+    Flag("fetch_parallel_threshold_bytes", int, 64 << 20,
+         "Objects at or above this size transfer as parallel ranged "
+         "chunks over multiple connections (the DCN bulk path); smaller "
+         "ones use a single fetch call. 0 disables ranged transfer."),
+    Flag("fetch_parallelism", int, 4,
+         "Concurrent connections per large-object fetch."),
+    Flag("push_max_inflight_bytes", int, 64 << 20,
+         "Sender-side flow control: max bytes of outbound object chunks "
+         "being copied/served concurrently per node; excess chunk "
+         "requests queue (reference: push_manager.h caps chunks in "
+         "flight on the sending side). 0 disables the cap."),
+    Flag("locality_aware_scheduling", bool, True,
+         "Score resource-feasible nodes by the bytes of task arguments "
+         "already resident on each (args >= locality_min_arg_bytes), so "
+         "tasks chase their data instead of pulling it (reference: "
+         "locality-aware leasing, lease_policy.h / Ownership NSDI'21). "
+         "Placement-group and node-affinity strategies keep precedence; "
+         "off = pure resource-fit + load + round-robin."),
+    Flag("locality_cache_ttl_s", float, 5.0,
+         "Driver-side object-location cache max staleness. Entries are "
+         "invalidated eagerly on free (the GCS 'freed' channel) and node "
+         "death; the TTL bounds staleness from eviction/spill, which "
+         "only ever costs scheduling quality, not correctness."),
+    Flag("locality_load_penalty_bytes", int, 16 << 20,
+         "Queue-depth tradeoff for locality scoring: each queued task on "
+         "a node discounts its local-argument bytes by this much, so a "
+         "deeply backlogged holder loses to an idle peer once the "
+         "transfer it saves is cheaper than the wait."),
+    Flag("locality_min_arg_bytes", int, 1 << 20,
+         "Arguments at or above this size participate in locality "
+         "scoring; smaller ones are cheaper to ship than to chase."),
+    Flag("gcs_heartbeat_interval_s", float, 0.2,
+         "Node -> GCS heartbeat period (reference: "
+         "raylet_report_resources_period_milliseconds)."),
+    Flag("gcs_heartbeat_timeout_s", float, 3.0,
+         "A node missing heartbeats for this long is marked DEAD "
+         "(reference: health_check_timeout_ms, "
+         "gcs_health_check_manager.h)."),
+    Flag("pull_acquire_timeout_s", float, 120.0,
+         "How long a bulk object pull waits for admission (store-memory "
+         "reservation) before timing out and re-planning from fresh "
+         "locations. Shrink in partition tests so a blocked pull fails "
+         "over in seconds, not minutes; errors name the peer address."),
+    Flag("pull_admission_fraction", float, 0.5,
+         "Fraction of object-store capacity that concurrent bulk pulls "
+         "may reserve; excess pulls queue by priority task-args > get > "
+         "wait (reference: pull_manager.h:52)."),
     # ---- workers and memory ----------------------------------------------
     Flag("memory_monitor_enabled", bool, True,
          "Kill workers under node memory pressure instead of letting the "
@@ -293,11 +343,67 @@ _FLAGS: List[Flag] = [
          "a pre-ready death (env pools count it toward their "
          "crash-loop bound). Raise on hosts with very slow cold "
          "starts."),
+    Flag("gcs_wal_fsync", bool, False,
+         "fsync the GCS write-ahead log on every append. Default off: "
+         "durability then covers GCS process crashes (the common failure), "
+         "not host/OS crashes. Turn on for strict durability at ~ms/append "
+         "cost (reference: gcs_storage durability knobs)."),
+    Flag("gcs_reconnect_timeout_s", float, 15.0,
+         "How long GCS clients (driver ClusterCore, node servers) keep "
+         "buffering and retrying calls while the head is unreachable "
+         "before failing them with GcsUnavailableError. Covers a SIGKILL "
+         "+ restart of the GCS process (reference: "
+         "gcs_rpc_server_reconnect_timeout_s)."),
+    Flag("gcs_op_buffer_max", int, 512,
+         "Max GCS calls a single client parks in the ride-through buffer "
+         "while the head is down; calls beyond this raise "
+         "GcsUnavailableError immediately instead of piling up threads "
+         "(mirror of actor_restart_buffer_max at the cluster level)."),
+    Flag("gcs_recovery_grace_s", float, 5.0,
+         "After a GCS restart that recovered prior state, suppress "
+         "death-marking of known nodes/drivers for this long so they can "
+         "heartbeat back in before the health loop declares them DEAD "
+         "(reference: gcs_failover_worker_reconnect_timeout)."),
     Flag("rpc_handshake_timeout_s", float, 15.0,
-         "Hard deadline on the authkey handshake the runtime's accept "
-         "loop runs with each worker connection: a half-open peer that "
-         "stalls mid-challenge is cut off after this long instead of "
-         "wedging the accept loop (see rpc._timed_handshake)."),
+         "Hard deadline on the cluster RPC authkey handshake (client and "
+         "server side): a half-open peer that stalls mid-challenge is "
+         "cut off after this long instead of wedging the connect path "
+         "(see rpc._timed_handshake). Timeout errors name the peer."),
+    Flag("driver_heartbeat_interval_s", float, 0.5,
+         "Driver -> GCS owner-liveness heartbeat period."),
+    Flag("driver_heartbeat_timeout_s", float, 3.0,
+         "A driver missing heartbeats this long is declared dead; its "
+         "objects are reclaimed cluster-wide and its non-detached actors "
+         "stop restarting (reference: owner-failure semantics, "
+         "core_worker/reference_count.h:61, gcs_job_manager.h)."),
+    Flag("cluster_view_refresh_s", float, 0.25,
+         "Driver-side cluster view (node table + loads) max staleness "
+         "before re-fetching from the GCS."),
+    Flag("node_drain_grace_s", float, 10.0,
+         "Bounded grace window for a DRAINING node: the scheduler stops "
+         "placing new work immediately, restartable/detached actors "
+         "migrate, and running tasks get this long to finish before the "
+         "GCS declares the node DRAINED (reference: DrainNodeRequest "
+         "deadline, gcs_node_manager). A drained node deregisters "
+         "cleanly — no death event, no lineage reconstruction."),
+    Flag("quarantine_score_threshold", float, 2.0,
+         "Per-node health score (heartbeat-interval jitter EWMA + "
+         "task-failure-rate EWMA + peer suspicion reports) above which "
+         "the GCS auto-QUARANTINES a gray-failing node: cordoned from "
+         "scheduling, existing work allowed to finish, periodically "
+         "probed for recovery. 0 disables quarantining."),
+    Flag("quarantine_recover_s", float, 1.0,
+         "Hysteresis window for un-quarantine: a QUARANTINED node "
+         "returns to ALIVE only after its health score has stayed below "
+         "half the quarantine threshold for this long AND the GCS's "
+         "periodic liveness probe succeeds — so a flapping node cannot "
+         "oscillate in and out of the schedulable set."),
+    Flag("job_lease_ttl_s", float, 2.0,
+         "Heartbeat lease a job agent holds on every claimed job; the "
+         "agent renews it each poll tick, and the GCS orphan detector "
+         "re-queues (or fails, per the job's max_restarts policy) any "
+         "RUNNING job whose lease expired — a SIGKILLed agent can no "
+         "longer strand jobs forever."),
     # ---- chaos / testing -------------------------------------------------
     Flag("testing_rpc_delay_ms", int, 0,
          "If > 0, injects a uniform random delay up to this many ms into "
@@ -328,10 +434,20 @@ WIRING_ENV_VARS: Dict[str, str] = {
                     "and attached drivers (host:port)",
     "RTPU_AUTH": "hex authkey for the driver<->worker control plane, "
                  "generated per session by the spawner",
+    "RTPU_CLUSTER_AUTHKEY": "hex authkey shared by every cluster "
+                            "process (see rpc.cluster_authkey: no "
+                            "default, deliberately)",
     "RTPU_GPU_IDS": "comma-separated GPU ids the runtime bound to a GPU "
                     "actor's worker (set at spawn alongside "
                     "CUDA_VISIBLE_DEVICES)",
+    "RTPU_NETEM": "seeded deterministic network-fault plan "
+                  "'<seed>:<spec>' armed at import in every cluster "
+                  "process (rule grammar and replay protocol in "
+                  "core/netem.py; wire-level sibling of RTPU_FAULT_*)",
     "RTPU_NODE_ID": "id of the node a spawned worker belongs to",
+    "RTPU_OWNER_PID": "pid of the process whose runtime spawned a "
+                      "worker (a driver or a node server); the worker "
+                      "exits when it dies",
     "RTPU_PKG_DIR": "working-dir package root a worker unpacked its "
                     "runtime env into (set by runtime_env activation)",
     "RTPU_SANITIZE": "arm the lock-order sanitizer: util/debug_lock.py "

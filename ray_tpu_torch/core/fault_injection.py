@@ -42,6 +42,12 @@ site           key                      actions
                                         seals the results, then exits
                                         before the DONE report flushes
                                         (worker-side; arm via env)
+``gcs_kill``   GCS op name              ``kill`` — SIGKILL the GCS
+                                        process as it starts handling a
+                                        matching op, before the op is
+                                        applied or WAL'd (head-node
+                                        chaos; arm via env — the site
+                                        fires inside the GCS process)
 ``prefill_handoff``  request id         ``drop`` — the finished KV-page
                                         handoff from a disaggregated
                                         prefill worker to its decode
@@ -121,8 +127,13 @@ The module also exposes direct helpers (``evict_object``,
 for tests that want to mutate state between calls rather than arm a
 site.
 
-The reference's sites of parts the port has not taken over yet (the
-GCS, the job agent) come with them.
+This module covers *application-level* sites (a named operation loses
+its object / worker / process). WIRE-level faults — partitions, drops,
+delays, duplicate deliveries, bandwidth caps on a chosen network edge —
+live in :mod:`ray_tpu_torch.core.netem`, armed via the sibling
+``RTPU_NETEM`` env protocol with the same seeded-determinism contract.
+The reference's sites of parts the port has not taken over yet (the job
+agent) come with them.
 """
 
 from __future__ import annotations
@@ -135,7 +146,7 @@ from typing import Dict, List, Optional
 from ray_tpu_torch.util.debug_lock import make_lock
 
 SITES = ("get", "spill", "dispatch", "task", "actor_call",
-         "actor_worker_kill", "prefill_handoff", "gang_resize",
+         "actor_worker_kill", "gcs_kill", "prefill_handoff", "gang_resize",
          "serve_overload", "serve_replica_kill", "stream_resume")
 
 _lock = make_lock("fault_injection._lock")

@@ -322,9 +322,10 @@ def deserialize_payload(payload: Payload, store=None) -> Any:
 
 
 def schema() -> str:
-    """The driver <-> worker wire schema, assembled from this module's
-    message constants (`python -m ray_tpu_torch.core.protocol` prints
-    it). The node and GCS planes come with cluster mode."""
+    """The complete wire schema, assembled from this module's message
+    constants (driver<->worker link) and the RPC servers' op handlers
+    (node/GCS planes) — the single-language analogue of the reference's
+    .proto files (`python -m ray_tpu_torch.core.protocol` prints it)."""
     import inspect
     import re
 
@@ -336,6 +337,23 @@ def schema() -> str:
             src, re.M):
         kind, name, tag, doc = m.groups()
         lines.append(f"  {kind}{name:<18} {tag!r:<22} {doc or ''}".rstrip())
+
+    for title, cls_path in (
+            ("node server RPC ops", "ray_tpu_torch.core.cluster.node_server"),
+            ("GCS server RPC ops", "ray_tpu_torch.core.cluster.gcs")):
+        lines += ["", title + " (authkey'd framed-pickle TCP)", "-" * 60]
+        import importlib
+
+        mod = importlib.import_module(cls_path)
+        for cls in vars(mod).values():
+            if not inspect.isclass(cls):
+                continue
+            ops = [(n[len("_op_"):], f) for n, f in vars(cls).items()
+                   if n.startswith("_op_")]
+            for op, f in sorted(ops):
+                doc = (inspect.getdoc(f) or "").split("\n")[0]
+                sig = str(inspect.signature(f)).replace("(self, ", "(")
+                lines.append(f"  {op:<22} {sig:<40} {doc}".rstrip())
     return "\n".join(lines)
 
 

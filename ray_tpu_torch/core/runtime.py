@@ -235,6 +235,11 @@ def _fd_readable(fd, timeout) -> bool:
 LISTEN_BACKLOG = 128
 
 
+# The reference's TPU option: this package schedules GPUs only.
+NUM_TPUS_REFUSED = ("num_tpus: ray_tpu_torch schedules GPUs, not TPUs; "
+                    "ask for num_gpus=N")
+
+
 def listen(path: str) -> Listener:
     """The driver's AF_UNIX listener on ``path``."""
     return Listener(path, family="AF_UNIX", backlog=LISTEN_BACKLOG)
@@ -607,6 +612,7 @@ class Runtime:
             RTPU_STORE="/" + self._session,
             RTPU_PKG_DIR=os.path.join(self._session_dir, "packages"),
             RTPU_NODE_ID=self.node_id.hex(),
+            RTPU_OWNER_PID=str(os.getpid()),
         )
         # every worker (cold-spawned, the zygote, a venv interpreter)
         # runs ``-m ray_tpu_torch.core.worker_main`` and must find the
@@ -2066,6 +2072,8 @@ class Runtime:
             num_cpus = 0.0 if is_actor else 1.0
         if num_cpus:
             req["CPU"] = float(num_cpus)
+        if options.get("num_tpus"):
+            raise ValueError(NUM_TPUS_REFUSED)
         num_gpus = options.get("num_gpus", 0)
         if num_gpus:
             if not is_actor:

@@ -987,6 +987,50 @@ def _prepare_args_local(core: WorkerCore, args: tuple, kwargs: dict):
     return payload, deps, [r.binary() for r in nested]
 
 
+def _owner_gone(owner: int) -> bool:
+    """Whether process ``owner`` has exited: no such pid, or a zombie
+    that its parent has not reaped yet."""
+    try:
+        with open(f"/proc/{owner}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in ("Z", "X")
+    except (OSError, IndexError):
+        try:
+            os.kill(owner, 0)
+        except ProcessLookupError:
+            return True
+        except OSError:
+            pass
+        return False
+
+
+def _exit_with_owner(period_s: float = 0.25) -> None:
+    """Exit when the process that runs this worker's runtime dies (a
+    driver, or a node server SIGKILLed): its pid is ``RTPU_OWNER_PID``.
+    The driver link's EOF reaches only a worker that is waiting for its
+    next task; a worker busy in a task, or held up by a thread that never
+    ends, would keep its memory, and a GPU worker its CUDA context, after
+    its node is gone. A cold-spawned worker is the owner's child and
+    polls ``getppid`` (a host without ``pidfd_open`` or
+    ``PR_SET_PDEATHSIG`` still reparents an orphan). A zygote's fork is
+    the zygote's child and outlives the zygote (the runtime kills a
+    wedged one and starts another): it polls the owner's pid."""
+    owner = int(os.environ.get("RTPU_OWNER_PID") or os.getppid())
+    child = os.getppid() == owner
+
+    def watch():
+        import time
+
+        while True:
+            time.sleep(period_s)
+            if os.getppid() == owner:
+                continue
+            if child or _owner_gone(owner):
+                os._exit(1)
+
+    threading.Thread(target=watch, daemon=True,
+                     name="rtpt-owner-watch").start()
+
+
 def main():
     from ray_tpu_torch.core.config import config
 
@@ -1006,6 +1050,7 @@ def main():
     node_id = NodeID.from_hex(os.environ["RTPU_NODE_ID"])
     worker_id = WorkerID.from_hex(os.environ["RTPU_WORKER_ID"])
 
+    _exit_with_owner()
     task_conn = Client(address, authkey=authkey)
     task_conn.send(("hello", "task", worker_id.binary()))
     data_conn = Client(address, authkey=authkey)

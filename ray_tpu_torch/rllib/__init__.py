@@ -15,8 +15,10 @@ Modules (``rl_module``: MLP, conv, Q, squashed-Gaussian, twin-Q) are
 trees; learners (PPO, IMPALA, APPO, DQN, SAC, BC, CQL, MARWIL, and
 DreamerV3's world model and actor-critic) take numpy batches, run their
 updates on their device and return the reference's metrics as Python
-floats. The external-env ``PolicyClient`` / ``PolicyServerInput`` wait
-for cluster mode's RPC layer.
+floats. The external-env ``PolicyClient`` / ``PolicyServerInput``
+(``policy_server``) serve actions to environments outside the cluster
+over the cluster's RPC layer and hand the caller's learner
+IMPALA-schema batches.
 """
 
 from ray_tpu_torch.rllib.algorithm import AlgorithmConfig  # noqa: F401
@@ -31,6 +33,8 @@ from ray_tpu_torch.rllib.multi_agent import (MultiAgentPPO,  # noqa: F401
 from ray_tpu_torch.rllib.offline import (BCLearner,  # noqa: F401
                                          CQLLearner, MARWILLearner,
                                          train_offline)
+from ray_tpu_torch.rllib.policy_server import (PolicyClient,  # noqa: F401
+                                               PolicyServerInput)
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig  # noqa: F401
 from ray_tpu_torch.rllib.replay_buffer import (  # noqa: F401
     PrioritizedReplayBuffer, ReplayBuffer)

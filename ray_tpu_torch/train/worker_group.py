@@ -145,7 +145,8 @@ class WorkerGroup:
     def _unsatisfiable_detail(self, bundles: List[Dict[str, float]]) -> str:
         """Name the first bundle the node cannot currently satisfy (the
         local branch of ``ray_tpu/state.py``'s resource views: the port's
-        state module comes with cluster mode)."""
+        state module comes with the rest of the package: ROADMAP.md
+        section 1, item 6)."""
         from ray_tpu_torch.core import runtime_context
 
         reason = None

@@ -1018,7 +1018,7 @@ def test_exports():
              "MultiAgentPPOConfig", "Catalog", "Box", "Discrete",
              "ReplayBuffer", "PrioritizedReplayBuffer", "BCLearner",
              "CQLLearner", "MARWILLearner", "train_offline", "MLPModule",
-             "QMLPModule", "SquashedGaussianModule", "TwinQModule")
+             "QMLPModule", "SquashedGaussianModule", "TwinQModule",
+             "PolicyClient", "PolicyServerInput")
     for name in names:
         assert hasattr(rl, name) and hasattr(prl, name), name
-    assert not hasattr(prl, "PolicyClient")

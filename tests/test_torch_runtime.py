@@ -591,6 +591,75 @@ def test_host_without_pidfd_cold_spawns_workers():
     assert out.stdout.split("\n")[0] == "[1, 2, 3, 4] ok"
 
 
+_ZYGOTE_ACTOR = (
+    "import os, sys, time, ray_tpu_torch as rt\n"
+    "from ray_tpu_torch.core import runtime_context\n"
+    "rt.init(num_workers=1, object_store_memory=32 << 20)\n"
+    "core = runtime_context.get_core()\n"
+    "@rt.remote\n"
+    "class A:\n"
+    "    def where(self):\n"
+    "        return os.getpid(), os.getppid()\n"
+    "a = A.remote()\n"
+    "pid, ppid = rt.get(a.where.remote(), timeout=60)\n"
+    "assert ppid == core._zygote.pid, (ppid, core._zygote.pid)\n"
+    "print(pid, flush=True)\n"
+    "if sys.argv[1] == 'zygote':\n"
+    "    core._zygote.kill()\n"
+    "    core._zygote.wait()\n"
+    "    time.sleep(1.5)\n"
+    "    print(rt.get(a.where.remote(), timeout=60)[0], flush=True)\n"
+    "    rt.shutdown()\n"
+    "else:\n"
+    "    time.sleep(600)\n")
+
+
+def test_zygote_fork_outlives_a_killed_zygote():
+    """The runtime kills a zygote it finds wedged and starts another; the
+    workers that zygote forked watch the runtime's process, not their
+    parent, and an actor on one keeps answering."""
+    out = subprocess.run([sys.executable, "-c", _ZYGOTE_ACTOR, "zygote"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    before, after = out.stdout.split()[:2]
+    assert before == after
+
+
+def test_zygote_fork_exits_with_its_runtime():
+    """A zygote's fork exits once the process that runs its runtime is
+    SIGKILLed, though its own parent, the zygote, is not the one that
+    died."""
+    proc = subprocess.Popen([sys.executable, "-c", _ZYGOTE_ACTOR, "owner"],
+                            cwd=ROOT, stdout=subprocess.PIPE, text=True)
+    try:
+        pid = int(proc.stdout.readline())
+        born = _stat(pid)[19]  # the start time tells a reused pid apart
+        proc.kill()
+        proc.wait()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            st = _stat(pid)
+            if not st or st[19] != born or st[0] == "Z":
+                break
+            time.sleep(0.1)
+        else:
+            os.kill(pid, 9)
+            raise AssertionError(f"worker {pid} outlived its runtime")
+    finally:
+        proc.kill()
+        proc.wait()
+
+
+def _stat(pid: int) -> list:
+    """``/proc/<pid>/stat``'s fields after the command (the state first),
+    or [] once the process is gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()
+    except OSError:
+        return []
+
+
 @pytest.mark.parametrize("tmpdir_len", ["short", "long"])
 def test_session_files_stay_under_tmpdir(tmp_path, tmpdir_len):
     """The session's directory, logs, socket and spill directory lie
@@ -752,23 +821,31 @@ def test_every_flag_row_has_a_reader():
 
 
 def test_refusals_name_their_slice(pkgs):
-    """Cluster mode, the thin client and the compiled DAGs' socket
-    channels (cross-node edges) are refused with NotImplementedError
-    until their slice lands; the compiled-DAG entry points run."""
+    """``init(address=...)`` with no GCS (and ``"ray://..."`` with no
+    proxy) behind the address raises the reference's typed connect
+    errors, with nothing initialised; the compiled DAGs' socket channels
+    (cross-node edges) stay refused with NotImplementedError until their
+    slice lands, while the compiled-DAG entry points run."""
     from ray_tpu_torch.core import runtime_context
 
-    code = ("import ray_tpu_torch as rt\n"
-            "for addr in ('127.0.0.1:6379', 'ray://127.0.0.1:10001'):\n"
+    code = ("import {pkg} as rt\n"
+            "for addr in ('127.0.0.1:1', 'ray://127.0.0.1:1'):\n"
             "    try:\n"
             "        rt.init(address=addr)\n"
-            "    except NotImplementedError as e:\n"
-            "        print('refused', 'ROADMAP' in str(e))\n"
+            "    except Exception as e:\n"
+            "        print(type(e).__name__, isinstance(\n"
+            "            e, __import__('{pkg}.core.cluster.rpc',\n"
+            "                          fromlist=['x']).RpcError))\n"
             "print(rt.is_initialized())\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120,
-                         check=True)
-    assert out.stdout.split("\n")[:3] == ["refused True", "refused True",
-                                          "False"]
+    env = dict(os.environ, RTPU_CLUSTER_AUTHKEY="00112233",
+               RTPU_GCS_RECONNECT_TIMEOUT_S="1", JAX_PLATFORMS="cpu")
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(pkg=pkg)],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for pkg in ("ray_tpu", "ray_tpu_torch")]
+    outs = [p.communicate(timeout=120)[0].split("\n")[:3] for p in procs]
+    assert outs[1] == outs[0] == ["GcsUnavailableError True",
+                                  "RpcError True", "False"]
 
     @ray_tpu_torch.remote
     class Stage:
