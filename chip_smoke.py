@@ -338,6 +338,25 @@ Phases, each printing what it finds; any failure exits non-zero:
    CartPole over ``PolicyClient``, an ``ImpalaLearner`` on the card
    consumes the batches and pushes its weights, and the return rises
    past the test's bar. The phase prints its seconds.
+21. cluster mode above the substrate: a fresh ``Cluster``, node A the
+   head (``add_node(head=True)``: the job agent) with CPUs only, node B
+   given the card. (a) ``ray_tpu_torch.state``: two ALIVE nodes, ``GPU``
+   1.0 cluster-wide, workers of both nodes in its lists and the summary.
+   (b) Llama-3-8B bf16 (32 layers, seed 0) served by a
+   ``PipelineDeployment`` of ``LLMPipeline``'s three stages, tokenize and
+   detokenize on node A, generate on node B's card: both cross-node
+   edges socket channels, 17(d)'s replies to 17(d)'s prompt, the
+   generate stage's flash launches one a layer a request; ms a request
+   beside 17(d)'s, and a small value's round trip over socket edges
+   beside 17(c)'s shm edge. (c) a one-worker NCCL gang on node B, driven
+   from node A, meets in rank 0's ``TCPStore`` and takes phase 15's
+   GPT-2 steps (losses within 2e-2 of phase 7's, the flash forward, dQ
+   and dK/dV launched); a two-worker gloo gang ``SPREAD`` over both
+   nodes: its ``torch`` backend's sums equal the ``host`` backend's. (d)
+   a job through ``JobSubmissionClient`` to node A's agent starts a
+   ``num_gpus=1`` actor on node B, which prints the digest of a seeded
+   GEMM on the card: the job SUCCEEDED with the driver's digest in its
+   logs. The phase prints its seconds.
 
 Phases 2, 4, 8 and 9(a) (fp32) check that every flash forward, dQ and
 dK/dV launch took the 3xTF32 kernels.
@@ -353,7 +372,8 @@ forward and G-4 paged rows phase 12's and phase 14's engines, the G-4
 paged row phase 13's, phase 17's replicas and generate stage the d-128
 wgmma and 3xTF32 forward and the G-4 paged rows, phase 18's trial
 actors and gang workers the d-64/128 wgmma rows, phase 20's GPU actor
-the d-128 forward and G-4 paged rows; the scalar bf16 rows
+the d-128 forward and G-4 paged rows, phase 21's generate stage and
+gang worker the d-128 and d-64 wgmma rows; the scalar bf16 rows
 phase 8's, 0 there: the tiny presets are fp32; phase 19 launches no
 attention kernel);
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -3738,14 +3758,16 @@ def _gang_gpt2_loop(config) -> None:
     tokens from numpy seed 0, AdamW(3e-4, weight decay 0.01)), resumed
     from ``train.get_checkpoint()`` when there is one (params and AdamW
     state through ``dist_checkpoint``); after each step it saves a
-    checkpoint and reports it. The first attempt exits after step 1's
-    report (behind the sentinel file)."""
+    checkpoint and reports it, with the kernel launches of its process
+    and the store its default group met in (phase 21). The first attempt
+    exits after step 1's report (behind the sentinel file)."""
     import shutil
     import tempfile
 
     from ray_tpu_torch import train as tr
     from ray_tpu_torch.models import gpt2, llama
     from ray_tpu_torch.tools.train_gang import average_grads
+    from ray_tpu_torch.train import backend as _train_backend
     from ray_tpu_torch.train import dist_checkpoint as dc
 
     dev = torch.device(config.get("device") or
@@ -3790,7 +3812,11 @@ def _gang_gpt2_loop(config) -> None:
         dc.save(d, state(step))
         tr.report({"step": step, "loss": value, "resumed_at": start,
                    "save_s": time.perf_counter() - t0, "pid": os.getpid(),
-                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES")},
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "node": os.environ.get("RTPU_NODE_ID"),
+                   "backend": torch.distributed.get_backend(),
+                   "rendezvous": type(_train_backend._COORDINATOR.get(
+                       "store")).__name__, "launches": counters()},
                   checkpoint=tr.Checkpoint.from_directory(d))
         shutil.rmtree(d, ignore_errors=True)
         if step == 1 and not os.path.exists(config["sentinel"]):
@@ -4408,6 +4434,9 @@ DAG_MODEL_CONFIG = {"preset": "llama3_8b", "dtype": "bfloat16",
 DAG_MAX_NEW, DAG_REQUESTS = 16, 5
 # phase 17's object store: the shm hop's three 136 MiB channels fit
 SERVE_STORE_BYTES = 1 << 30
+# 17(d)'s reply and ms a request, 17(c)'s shm round trip (phase 21 prints
+# its socket edges beside them)
+PHASE17_DAG: dict = {}
 
 
 def _served_engine(kind: str):
@@ -4812,6 +4841,7 @@ def serve_plane_phase(dev, phase3: dict, phase9a: dict) -> dict:
         finally:
             dag.teardown()
         rt.kill(lane)
+        PHASE17_DAG["rtt_shm_us"] = statistics.median(rtt_dag) * 1e6
         print(f"  (c) {nbytes / 2**20:.0f} MiB of K and V (2 x "
               f"{list(LANE_KV_SHAPE)} bf16) between two methods of one "
               f"GPU actor: device='auto' compiles {kinds}, the consumer "
@@ -4866,6 +4896,8 @@ def serve_plane_phase(dev, phase3: dict, phase9a: dict) -> dict:
               f"flash launches {n['fwd']} (wgmma {n['fwd_sm90']})",
               flush=True)
         launches["flash_attention_fwd"] += n["fwd_sm90"]
+        PHASE17_DAG.update(text=text, reply=want,
+                           ms=statistics.median(times) * 1e3)
     finally:
         serve.shutdown()
         rt.shutdown()
@@ -6452,6 +6484,382 @@ def cluster_phase(dev, phase3: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 21
+
+# 21(b): small-value round trips timed over the socket edges
+SOCK_RTT_CALLS = 200
+# 21(c): GPT-2 steps the NCCL gang takes (phase 15's run, batch and seq)
+CLUSTER_GANG_STEPS = 3
+# 21(d): the job's GEMM, n x n with entries in [-8, 8] (exact in fp32)
+JOB_GEMM_N, JOB_GEMM_SEED = 4096, 21
+# phase 21's object stores
+CLUSTER21_STORE_BYTES = 512 << 20
+
+
+class _Echo:
+    """21(b)'s stage on node B for the socket round trip."""
+
+    def step(self, x):
+        return x
+
+
+def _counted_generate():
+    """21(b)'s generate stage: ``LLMPipeline``'s ``_Generate`` that also
+    reports its process's kernel launches."""
+    from ray_tpu_torch.serve import dag_mode
+
+    class CountedGenerate(dag_mode._Generate):
+        def launches(self) -> dict:
+            return counters()
+
+    return CountedGenerate
+
+
+def _spread_sums_loop(config) -> None:
+    """21(c)'s gloo gang worker: the ``torch`` backend's sums (and every
+    other op) against the ``host`` backend's, and the node it runs on."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.parallel import collective
+
+    ctx = tr.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    dev = collective.init_collective_group(world, rank, backend="torch",
+                                           group_name="dev")
+    host = collective.get_group("train")
+    x = np.random.default_rng(rank).standard_normal(1 << 16)
+    t = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    same = {}
+    for op in ("sum", "prod", "min", "max"):
+        same[op] = bool(np.array_equal(dev.allreduce(x, op),
+                                       host.allreduce(x, op)))
+        same[op + "_bf16"] = bool(torch.equal(dev.allreduce(t, op),
+                                              host.allreduce(t, op)))
+    same["allgather"] = all(np.array_equal(a, b) for a, b in zip(
+        dev.allgather(x), host.allgather(x)))
+    same["broadcast"] = bool(np.array_equal(dev.broadcast(x, 1),
+                                            host.broadcast(x, 1)))
+    nodes = [None] * world
+    dist.all_gather_object(nodes, os.environ.get("RTPU_NODE_ID"))
+    tr.report({"same": same, "nodes": nodes, "world": world,
+               "backend": dist.get_backend(),
+               "sum0": float(dev.allreduce(x)[0])})
+
+
+_JOB = r"""
+import hashlib, os, sys, time
+import ray_tpu_torch as rt
+
+n, seed, device = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+rt.init()
+
+
+@rt.remote
+class Gemm:
+    def run(self, n, seed, device):
+        import torch
+
+        g = torch.Generator(device=device).manual_seed(seed)
+        a, b = (torch.randint(-8, 9, (n, n), generator=g, device=device,
+                              dtype=torch.float32) for _ in range(2))
+        c = a @ b
+        name = (torch.cuda.get_device_name(0) if device == "cuda"
+                else "cpu")
+        return (hashlib.sha256(c.cpu().numpy().tobytes()).hexdigest(),
+                os.environ.get("RTPU_NODE_ID"),
+                os.environ.get("CUDA_VISIBLE_DEVICES"), name)
+
+
+t0 = time.perf_counter()
+g = Gemm.options(num_gpus=1).remote()
+digest, node, visible, name = rt.get(g.run.remote(n, seed, device),
+                                     timeout=600)
+print("JOB_DIGEST", digest, node, visible, repr(name),
+      f"{time.perf_counter() - t0:.2f}", flush=True)
+rt.shutdown()
+"""
+
+
+def _gemm_digest(n: int, seed: int, device) -> str:
+    """21(d): the job's GEMM in the driver: sha256 of ``a @ b`` over
+    seeded integer entries (every product and sum exact in fp32, so any
+    order of summation gives these bits)."""
+    import hashlib
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    a, b = (torch.randint(-8, 9, (n, n), generator=g, device=device,
+                          dtype=torch.float32) for _ in range(2))
+    return hashlib.sha256((a @ b).cpu().numpy().tobytes()).hexdigest()
+
+
+def cluster_plane_phase(dev, phase17: dict, gpt2_losses: list) -> dict:
+    """21: cluster mode above the substrate, on a fresh ``Cluster``: node
+    A the head (the job agent) with CPUs only, node B given the card.
+    (a) the state API on the driver; (b) Llama-3-8B bf16 served by a
+    ``PipelineDeployment`` of ``LLMPipeline``'s stages across the nodes,
+    over two socket edges, against 17(d)'s replies (``phase17``); (c) a
+    one-worker NCCL gang on node B through the TCP rendezvous, against
+    phase 7's GPT-2 losses, and a gloo gang ``SPREAD`` over both nodes;
+    (d) a job through node A's agent that runs a GEMM on node B's card.
+    Returns the launches of (b)'s generate stage and (c)'s gang worker.
+    On the CPU (a rehearsal, with ``DAG_MODEL_CONFIG``, ``GANG_GPT2`` and
+    ``GPT2Config.gpt2_125m`` patched small) node B gets an injected GPU
+    id and its actors run on the CPU."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import state
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.core import runtime_context
+    from ray_tpu_torch.core.cluster import Cluster
+    from ray_tpu_torch.dag import compile_pipeline
+    from ray_tpu_torch.job import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.serve.dag_mode import (PipelineDeployment,
+                                              _Detokenize, _Tokenize)
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    device = None if cuda else "cpu"
+    mc = DAG_MODEL_CONFIG
+    layers = llama.LlamaConfig.llama3_8b().num_layers
+    launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0}
+    gc.collect()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    storage = tempfile.mkdtemp(prefix="rtpt_cluster21_")
+    t0 = time.perf_counter()
+    cluster = Cluster(num_nodes=0, num_workers_per_node=2,
+                      object_store_memory=CLUSTER21_STORE_BYTES)
+    dep = client = None
+    try:
+        node_a = cluster.add_node(resources={"node_a": 4}, head=True)
+        node_b = cluster.add_node(resources={"node_b": 4}, gpus=1)
+        check(cluster.wait_for_nodes(2), "21(a): the nodes did not register")
+        gcs = cluster.gcs_address
+        os.environ["RTPU_CLUSTER_AUTHKEY"] = cluster.authkey.hex()
+        rt.init(address=f"{gcs[0]}:{gcs[1]}")
+        core = runtime_context.get_core()
+        up_s = time.perf_counter() - t0
+        check(tuple(core._home) == tuple(node_a.address),
+              "21(a): the driver's home node is not node A")
+
+        # (a) the state API
+        where = rt.remote(_cluster_where)
+        rt.get([where.options(resources={r: 1}).remote()
+                for r in ("node_a", "node_b")], timeout=120)
+        nodes = state.list_nodes()
+        ids = {tuple(n["address"]): n["node_id"] for n in nodes}
+        id_a, id_b = ids.get(tuple(node_a.address)), ids.get(
+            tuple(node_b.address))
+        res = state.cluster_resources()
+        summary = state.state_summary()
+        worker_nodes = {w["node_id"] for w in state.list_workers()}
+        check(len(nodes) == 2 and all(n["state"] == "ALIVE" for n in nodes)
+              and id_a and id_b, f"21(a): list_nodes {nodes}")
+        check(res.get("GPU") == 1.0 and res.get("CPU") == 4.0,
+              f"21(a): cluster_resources {res}")
+        check(len(summary["nodes"]) == 2
+              and summary["cluster_resources"] == res
+              and worker_nodes == {id_a, id_b},
+              f"21(a): the summary's nodes {summary['nodes']}, workers on "
+              f"{worker_nodes}")
+        print(f"  (a) head node A (job agent) and GPU node B up, driver "
+              f"connected in {up_s:.2f} s; state: {len(nodes)} nodes "
+              f"ALIVE, cluster_resources {res}, workers on both nodes "
+              f"({len(state.list_workers())}), summary tasks "
+              f"{summary['tasks']}", flush=True)
+
+        # (b) Llama-3-8B across nodes: tokenize | generate (card) | detok
+        t1 = time.perf_counter()
+        dep = PipelineDeployment([
+            (_Tokenize, "run", (mc.get("vocab_size", 256),),
+             {"resources": {"node_a": 1}}),
+            (_counted_generate(), "run",
+             (mc, DAG_MAX_NEW, None, device), {"num_gpus": 1}),
+            (_Detokenize, "run", (), {"resources": {"node_a": 1}}),
+        ])
+        ready_s = time.perf_counter() - t1
+        gen = dep._actors[1]
+        table = core.gcs.call(("list_actors",))
+        placed = [tuple(table[a._actor_id.binary()]["node"])
+                  for a in dep._actors]
+        check(placed == [tuple(node_a.address), tuple(node_b.address),
+                         tuple(node_a.address)],
+              f"21(b): the stages are on {placed}")
+        text = phase17["text"]
+        replies, times = [], []
+        for _ in range(DAG_REQUESTS):
+            t1 = time.perf_counter()
+            replies.append(dep(text, timeout_ms=300_000))
+            times.append(time.perf_counter() - t1)
+        socks = core.kv_op("keys", "dagchan:")
+        to_driver = [d[0] for d, _ in
+                     dep._dag._in_edges + dep._dag._out_edges]
+        n = rt.get(gen.launches.remote(), timeout=60)
+        dep.shutdown()
+        dep = None
+        check(to_driver == ["shm", "shm"] and len(socks) == 2,
+              f"21(b): the driver's edges are {to_driver}, socket edges "
+              f"{len(socks)} (want the two between nodes A and B)")
+        check(all(r == phase17["reply"] for r in replies),
+              f"21(b): the replies differ from 17(d)'s:\n{replies[0]}\n"
+              f"{phase17['reply']}")
+        check(n["fwd"] == layers * DAG_REQUESTS and n["fwd_sm90"] == n["fwd"],
+              f"21(b): the generate stage's flash launches {n['fwd']} "
+              f"(wgmma {n['fwd_sm90']}), want {layers} a request x "
+              f"{DAG_REQUESTS}")
+        launches["flash_attention_fwd"] += n["fwd_sm90"]
+        echo = rt.remote(_Echo).options(resources={"node_b": 1}).remote()
+        dag = compile_pipeline([(echo, "step")])
+        try:
+            kinds = [d[0] for d, _ in dag._in_edges + dag._out_edges]
+            dag.execute(0)
+            rtt = []
+            for i in range(SOCK_RTT_CALLS):
+                t1 = time.perf_counter()
+                dag.execute(i)
+                rtt.append(time.perf_counter() - t1)
+        finally:
+            dag.teardown()
+        rt.kill(echo)
+        check(kinds == ["sock", "sock"],
+              f"21(b): the echo's edges are {kinds}")
+        ms17 = phase17.get("ms")
+        shm_us = phase17.get("rtt_shm_us")
+        print(f"  (b) Llama-3-8B bf16 ({layers} layers) as tokenize on A | "
+              f"generate on B's card | detokenize on A, over 2 socket "
+              f"edges (the driver's 2 shm): ready in {ready_s:.2f} s; "
+              f"{DAG_REQUESTS} replies equal 17(d)'s; "
+              f"{statistics.median(times) * 1e3:.2f} ms a request (p50; "
+              f"17(d) on one node: "
+              + (f"{ms17:.2f} ms)" if ms17 else "not measured)")
+              + f"; flash launches {n['fwd']} (wgmma {n['fwd_sm90']}); a "
+              f"small value's round trip over 2 socket edges p50 "
+              f"{statistics.median(rtt) * 1e6:.1f} us (17(c)'s shm edge: "
+              + (f"{shm_us:.1f} us)" if shm_us else "not measured)")
+              + f" ({SOCK_RTT_CALLS} calls)", flush=True)
+
+        # (c) the gangs: NCCL on node B through the TCP rendezvous, gloo
+        # SPREAD over A and B
+        gcfg = gpt2.GPT2Config.gpt2_125m()
+        gb, gs = GANG_GPT2
+        sentinel = os.path.join(storage, "crashed")
+        open(sentinel, "w").close()   # no crash drill here
+        t1 = time.perf_counter()
+        res_g = tr.TorchTrainer(
+            _gang_gpt2_loop,
+            train_loop_config={"cfg": gcfg, "batch": gb, "seq": gs,
+                               "steps": CLUSTER_GANG_STEPS,
+                               "device": device, "sentinel": sentinel},
+            torch_config=tr.TorchConfig(device=device, distributed=True,
+                                        timeout_s=600.0),
+            scaling_config=tr.ScalingConfig(
+                num_workers=1, use_gpu=cuda,
+                resources_per_worker={"node_b": 1}),
+            run_config=tr.RunConfig(storage_path=storage,
+                                    name="gpt2")).fit()
+        nccl_s = time.perf_counter() - t1
+        check(res_g.error is None,
+              f"21(c): the NCCL gang failed: {res_g.error!r}")
+        hist = res_g.metrics_history
+        glosses = [m["loss"] for m in hist]
+        want = gpt2_losses[:CLUSTER_GANG_STEPS]
+        grel = _rel(glosses, want)
+        ng = hist[-1]["launches"]
+        L = gcfg.num_layers
+        steps = CLUSTER_GANG_STEPS
+        check(hist[0]["node"] == id_b and hist[0]["rendezvous"] == "TCPStore"
+              and hist[0]["backend"] == ("nccl" if cuda else "gloo"),
+              f"21(c): the gang ran on {hist[0]['node']} ({id_b} is B), "
+              f"met in {hist[0]['rendezvous']}, {hist[0]['backend']}")
+        check(grel <= 2e-2, f"21(c): losses {glosses} are not phase 7's "
+                            f"{want} at rtol 2e-2")
+        check(ng["fwd"] == ng["fwd_sm90"] >= L * steps
+              and ng["dq"] == ng["dq_sm90"] == L * steps
+              and ng["dkv"] == ng["dkv_sm90"] == L * steps,
+              f"21(c): the gang worker's launches {ng}, want >= "
+              f"{L * steps} forward and {L * steps} dQ and dK/dV, all "
+              f"wgmma")
+        launches["flash_attention_fwd"] += ng["fwd_sm90"]
+        launches["flash_attention_bwd_dq"] += ng["dq_sm90"]
+        launches["flash_attention_bwd_dkv"] += ng["dkv_sm90"]
+        t1 = time.perf_counter()
+        res_s = tr.TorchTrainer(
+            _spread_sums_loop,
+            torch_config=tr.TorchConfig(device="cpu", distributed=True),
+            scaling_config=tr.ScalingConfig(num_workers=2,
+                                            placement_strategy="SPREAD"),
+            run_config=tr.RunConfig(storage_path=storage,
+                                    name="spread")).fit()
+        spread_s = time.perf_counter() - t1
+        check(res_s.error is None,
+              f"21(c): the gloo gang failed: {res_s.error!r}")
+        m = res_s.metrics
+        check(sorted(m["nodes"]) == sorted([id_a, id_b])
+              and (m["world"], m["backend"]) == (2, "gloo")
+              and all(m["same"].values()),
+              f"21(c): the SPREAD gang: nodes {m['nodes']}, {m['backend']} "
+              f"world {m['world']}, equal ops {m['same']}")
+        print(f"  (c) NCCL gang on node B from node A's driver, met in "
+              f"rank 0's TCPStore: GPT-2 125M {gb} x {gs}, losses "
+              f"{' '.join(f'{x:.4f}' for x in glosses)} against phase 7's "
+              f"{' '.join(f'{x:.4f}' for x in want)} (largest relative "
+              f"difference {grel:.3e}); launches fwd {ng['fwd']} dq "
+              f"{ng['dq']} dkv {ng['dkv']} (all wgmma); fit {nccl_s:.1f} "
+              f"s. gloo gang SPREAD over A and B: every torch-backend op "
+              f"equals the host backend's ({len(m['same'])} checks); fit "
+              f"{spread_s:.1f} s", flush=True)
+
+        # (d) a job through the head's agent, its GEMM on node B's card
+        want_digest = _gemm_digest(JOB_GEMM_N, JOB_GEMM_SEED,
+                                   "cuda" if cuda else "cpu")
+        script = os.path.join(storage, "job.py")
+        with open(script, "w") as f:
+            f.write(_JOB)
+        client = JobSubmissionClient(f"{gcs[0]}:{gcs[1]}",
+                                     authkey=cluster.authkey)
+        t1 = time.perf_counter()
+        jid = client.submit_job(
+            entrypoint=f"{sys.executable} {script} {JOB_GEMM_N} "
+                       f"{JOB_GEMM_SEED} {'cuda' if cuda else 'cpu'}")
+        status = client.wait_until_finished(jid, timeout=300)
+        job_s = time.perf_counter() - t1
+        logs = client.get_job_logs(jid)
+        line = next((ln for ln in logs.splitlines()
+                     if ln.startswith("JOB_DIGEST ")), "")
+        parts = line.split()
+        info = client.get_job_info(jid)
+        check(status == JobStatus.SUCCEEDED,
+              f"21(d): the job ended {status}:\n{logs[-2000:]}")
+        check(len(parts) >= 4 and parts[1] == want_digest
+              and parts[2] == id_b and info["agent"] == id_a,
+              f"21(d): the job printed {line!r} (driver's digest "
+              f"{want_digest}, node B {id_b}, agent {info['agent']})")
+        print(f"  (d) job {jid} through node A's agent: SUCCEEDED "
+              f"{job_s:.2f} s after submit; its num_gpus=1 actor on node "
+              f"B (CUDA_VISIBLE_DEVICES={parts[3]!r}, "
+              f"{' '.join(parts[4:-1])}) printed the driver's digest of "
+              f"the {JOB_GEMM_N} x {JOB_GEMM_N} GEMM ({parts[1][:16]}...; "
+              f"{parts[-1]} s in the job's driver)", flush=True)
+    finally:
+        if client is not None:
+            client.close()
+        if dep is not None:
+            dep.shutdown()
+        rt.shutdown()
+        cluster.shutdown()
+        os.environ.pop("RTPU_CLUSTER_AUTHKEY", None)
+        shutil.rmtree(storage, ignore_errors=True)
+    print(f"  phase 21 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def _detached(params) -> dict:
     return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in params.items()}
@@ -6613,6 +7021,14 @@ def main() -> None:
           "GPU node, 1 GiB across nodes, node deaths, the ray:// client, "
           "the RLlib policy server", flush=True)
     clustered = cluster_phase(dev, phase3)
+    phase_start(21)
+    print("phase 21: cluster mode above the substrate: the state API, "
+          "Llama-3-8B bf16 served by a DAG across two nodes over socket "
+          "edges, gangs through the TCP rendezvous (NCCL on node B, gloo "
+          "SPREAD over both), a job through the head node's agent",
+          flush=True)
+    planed = cluster_plane_phase(dev, PHASE17_DAG,
+                                 families["gpt2"]["losses"])
     # the serving kernels' counts come from phases 3 and 6, the backward
     # kernels' from phase 5 (wgmma, d 128) and phase 7's Gemma run (the
     # wgmma dQ and dK/dV at d 256), the fp32 rows' from phase 2's Llama
@@ -6650,9 +7066,11 @@ def main() -> None:
     # and the G-4 paged kernel
     # and phase 18's trial actors and gang workers the d-64 wgmma flash
     # kernels
-    # and phase 20's GPU actor on node B the serving kernels
+    # and phase 20's GPU actor on node B the serving kernels, phase 21's
+    # generate stage the d-128 forward and its gang worker the d-64 flash
+    # forward, dQ and dK/dV
     for part in (tp_serve, ckpt, tp_disagg, runtime, gang, data, served,
-                 swept, clustered):
+                 swept, clustered, planed):
         for name, n in part.items():
             launches[name] += n
     # the scalar kernels' rows: phase 8's count (its presets are fp32)

@@ -163,10 +163,11 @@ class Cluster:
 
     def add_node(self, num_workers: Optional[int] = None,
                  resources: Optional[dict] = None,
-                 gpus=None) -> NodeProc:
+                 gpus=None, head: bool = False) -> NodeProc:
         """Start a node server. ``gpus``: a count (``RTPU_GPUS``, ids
         ``0..n-1``) or a list of device ids (``CUDA_VISIBLE_DEVICES``);
-        None, the default, gives the node none."""
+        None, the default, gives the node none. ``head`` runs the
+        head-node services there (``--head``: the job agent)."""
         env = dict(self._env)
         if isinstance(gpus, int):
             env["RTPU_GPUS"] = str(gpus)
@@ -179,6 +180,8 @@ class Cluster:
                "--object-store-memory", str(self._store_mem)]
         if resources:
             cmd += ["--resources", json.dumps(resources)]
+        if head:
+            cmd.append("--head")
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.DEVNULL, env=env)
         self.procs.append(proc)

@@ -286,12 +286,30 @@ class NodeRuntime(Runtime):
                                    actor_id=None):
         name = (opts or {}).get("name")
         srv = self._server_ref
-        actor_id = super()._create_actor_from_payload(
-            cls_fn_id, args_payload, deps, opts, actor_id=actor_id)
+        if srv is not None and actor_id is None:
+            # a worker's creation this node can never hold leaves for a
+            # fitting peer, as an infeasible task does
+            spilled = srv.spill_actor(cls_fn_id, args_payload, deps, opts)
+            if spilled is not None:
+                return spilled
+        actor_id = actor_id or ActorID.from_random()
+        if srv is not None and name:
+            # claim the name cluster-wide BEFORE creating: a creation that
+            # loses the race to a peer's must leave no local actor
+            # answering to the name (the reference creates first, so two
+            # workers racing to create a group's coordinator on two nodes
+            # each kept their own)
+            srv.gcs.call(("name_actor", name, actor_id.binary(),
+                          srv.address))
+        try:
+            actor_id = super()._create_actor_from_payload(
+                cls_fn_id, args_payload, deps, opts, actor_id=actor_id)
+        except BaseException:
+            if srv is not None and name:
+                srv.gcs.try_call(("drop_actor_name", name,
+                                  actor_id.binary()))
+            raise
         if srv is not None:
-            if name:
-                srv.gcs.call(("name_actor", name, actor_id.binary(),
-                              srv.address))
             srv.gcs.try_call(("register_actor", actor_id.binary(), {
                 "node": srv.address, "name": name, "state": "ALIVE",
                 "opts": {k: v for k, v in (opts or {}).items()
@@ -1069,6 +1087,50 @@ class NodeServer:
         # acquired; request simply never enters the local pool)
         return True
 
+    def spill_actor(self, cls_fn_id: bytes, args_payload, deps, opts
+                    ) -> Optional[ActorID]:
+        """Create on a peer an actor a local worker asked for that this
+        node cannot hold: one whose request exceeds this node's totals
+        goes to a peer whose totals fit; one that does not fit what is
+        free here now goes to a peer where it fits what is free there
+        (lease spillback). A placement-group member stays: its bundle is
+        here. Returns the actor's id, or None to create it here. The
+        reference leaves such an actor pending on the worker's node, so
+        a serve controller's replicas never leave its node."""
+        rt = self.runtime
+        request, pg_wire = rt._prepare_request(dict(opts or {}),
+                                               is_actor=True)
+        if pg_wire is not None or request is None:
+            return None
+        with rt._lock:
+            feasible = request.is_subset_of(rt._total)
+            if feasible and request.is_subset_of(rt._avail):
+                return None
+        try:
+            peers = self._alive_peers()
+        except RpcError:
+            return None
+        req = request.to_dict()
+        pool = "avail" if feasible else "resources"
+        fit = [n for n in peers
+               if all(n[pool].get(k, 0) >= v for k, v in req.items())]
+        if not fit:
+            return None
+        fit.sort(key=lambda n: (n["load"],
+                                -sum(n["avail"].get(k, 0) for k in req)))
+        target = tuple(fit[0]["address"])
+        with rt._lock:
+            pickled_cls = rt._functions.get(cls_fn_id)
+        dep_b = [d.binary() for d in deps]
+        actor_id = ActorID.from_random()
+        self._peers.get(target).call(
+            ("create_actor", cls_fn_id, pickled_cls,
+             materialize(rt, args_payload), dep_b, dict(opts or {}),
+             {b: self.address for b in dep_b}, actor_id.binary(),
+             os.urandom(16), None))
+        self._remote_actors[actor_id] = target
+        return actor_id
+
     # ------------------------------------------------- remote actor routing
 
     def _actor_addr(self, actor_id: ActorID) -> Tuple[str, int]:
@@ -1825,13 +1887,8 @@ def main(argv=None):
     p.add_argument("--resources", type=str, default=None,
                    help='JSON dict of extra resources, e.g. {"disk": 2}')
     p.add_argument("--head", action="store_true",
-                   help="run head-node services (the job agent: not in "
-                        "this package yet)")
+                   help="run head-node services (the job agent)")
     args = p.parse_args(argv)
-    if args.head:
-        raise SystemExit(
-            "--head starts the job agent, which ray_tpu_torch does not "
-            "have yet (ROADMAP.md section 1, item 6: job/)")
     resources = None
     if args.resources:
         import json
@@ -1841,6 +1898,12 @@ def main(argv=None):
                       object_store_memory=args.object_store_memory,
                       resources=resources, port=args.port)
     node._owns_process = True
+    agent = None
+    if args.head:
+        from ray_tpu_torch.job.agent import JobAgent
+
+        agent = JobAgent(node.gcs, _parse_addr(args.gcs),
+                         agent_id=node.node_id.hex())
     print(f"NODE_ADDRESS {node.address[0]}:{node.address[1]}", flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
@@ -1863,6 +1926,8 @@ def main(argv=None):
 
     signal.signal(signal.SIGUSR2, _dump_stacks)
     stop.wait()
+    if agent is not None:
+        agent.close()
     node.close()
     sys.exit(0)
 

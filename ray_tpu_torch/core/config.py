@@ -404,6 +404,11 @@ _FLAGS: List[Flag] = [
          "re-queues (or fails, per the job's max_restarts policy) any "
          "RUNNING job whose lease expired — a SIGKILLed agent can no "
          "longer strand jobs forever."),
+    Flag("job_max_restarts_default", int, 0,
+         "Default max_restarts for submit_job when the caller does not "
+         "pass one: how many times a crash-looping entrypoint (nonzero "
+         "exit, or an orphaned claim) is re-queued with exponential "
+         "backoff + full jitter before the job goes FAILED."),
     # ---- chaos / testing -------------------------------------------------
     Flag("testing_rpc_delay_ms", int, 0,
          "If > 0, injects a uniform random delay up to this many ms into "

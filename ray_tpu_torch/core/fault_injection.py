@@ -76,6 +76,15 @@ site           key                      actions
                                         Fires driver-side inside
                                         BackendExecutor, so in-process
                                         ``inject`` works
+``job_claim``  job id                   ``drop`` — the job agent
+                                        abandons a claim right after the
+                                        PENDING -> RUNNING cas succeeds,
+                                        without spawning the entrypoint
+                                        (an agent that died mid-claim);
+                                        the lease-expiry orphan detector
+                                        must recover the job. Fires in
+                                        the agent's process, so
+                                        in-process ``inject`` works
 ``serve_overload``  deployment name     ``shed`` — the serve router's
                                         admission check rejects the
                                         matching request with
@@ -132,8 +141,6 @@ its object / worker / process). WIRE-level faults — partitions, drops,
 delays, duplicate deliveries, bandwidth caps on a chosen network edge —
 live in :mod:`ray_tpu_torch.core.netem`, armed via the sibling
 ``RTPU_NETEM`` env protocol with the same seeded-determinism contract.
-The reference's sites of parts the port has not taken over yet (the job
-agent) come with them.
 """
 
 from __future__ import annotations
@@ -147,7 +154,8 @@ from ray_tpu_torch.util.debug_lock import make_lock
 
 SITES = ("get", "spill", "dispatch", "task", "actor_call",
          "actor_worker_kill", "gcs_kill", "prefill_handoff", "gang_resize",
-         "serve_overload", "serve_replica_kill", "stream_resume")
+         "serve_overload", "job_claim", "serve_replica_kill",
+         "stream_resume")
 
 _lock = make_lock("fault_injection._lock")
 _specs: Dict[str, List[dict]] = {}

@@ -470,8 +470,9 @@ class WorkerCore:
         result to EVERY output channel. Errors are forwarded as ('e', exc)
         markers so downstream stages pass them through and the driver
         re-raises (reference: compiled DAG error propagation). Each
-        channel is shm, or a DeviceChannel between two stages of this
-        actor. Every stage runs its loop in a thread of its own, so two
+        channel is shm (same-node), socket (cross-node), or a
+        DeviceChannel between two stages of this actor, each edge pairing
+        calls FIFO. Every stage runs its loop in a thread of its own, so two
         stages of one actor may run on other CUDA streams: the device
         lane orders them with an event (``dag/channel.py``)."""
         import threading
@@ -484,15 +485,22 @@ class WorkerCore:
             import sys
             import traceback as tb
 
+            # open INSIDE the loop thread: socket readers bind+publish
+            # here, writers block until their peer publishes — neither
+            # may stall the __rtpu_dag_start__ ack
             ins: list = []
             outs: list = []
             try:
                 # append one by one: a failure partway must not orphan
-                # the endpoints already opened
+                # the endpoints already opened (a bound socket reader has
+                # published its rendezvous key by now)
                 for d in in_descs:
-                    ins.append(open_endpoint(d, store=self.store))
+                    ins.append(open_endpoint(d, store=self.store,
+                                             kv=self.kv_op, role="reader"))
                 for d in out_descs:
-                    outs.append(open_endpoint(d, store=self.store))
+                    outs.append(open_endpoint(d, store=self.store,
+                                              kv=self.kv_op,
+                                              role="writer"))
             except Exception as e:  # noqa: BLE001
                 # a real setup failure must not present as a silent hang:
                 # log it, and try to push the error downstream so the
@@ -503,7 +511,9 @@ class WorkerCore:
                     f"{e!r}")
                 for d in out_descs:
                     try:
-                        outch = open_endpoint(d, store=self.store)
+                        outch = open_endpoint(d, store=self.store,
+                                              kv=self.kv_op, role="writer",
+                                              timeout_ms=5000)
                         outch.write(("e", err), timeout_ms=5000)
                         outs.append(outch)
                     # rtpu-lint: disable=L4 — best-effort error fan-out:

@@ -22,13 +22,14 @@ Each stage's actor runs a resident loop (reference: the compiled DAG's
 per-actor executable loop, compiled_dag_node.py:92) reading ALL its input
 channels in a fixed order, invoking the bound method with those values,
 and writing the result to every consumer's channel. Execution never
-touches the scheduler. Edges ride seqno-gated shm channels
+touches the scheduler. Same-node edges ride seqno-gated shm channels
 (microseconds); an edge between two stages of one GPU actor may ride a
 ``DeviceChannel`` instead, which hands CUDA tensors over by reference
 (``device=``: "auto" for GPU actors, "force" for any same-process edge,
-"off" for none). Stages run in PIPELINE: call N+1 may enter stage 1
-while call N is downstream. Cross-node edges (the reference's socket
-channels) come with cluster mode (ROADMAP.md section 1, item 5).
+"off" for none). CROSS-NODE edges ride framed TCP channels with the
+same rendezvous semantics (dag/channel.py:SocketChannel), so a graph may
+span the cluster. Stages run in PIPELINE: call N+1 may enter stage 1
+while call N is downstream.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import ray_tpu_torch
 from ray_tpu_torch.core import runtime_context
 from ray_tpu_torch.core.config import config
-from ray_tpu_torch.dag.channel import Channel, ChannelClosed, DeviceChannel
+from ray_tpu_torch.dag.channel import (Channel, ChannelClosed,
+                                       DeviceChannel, SocketChannel,
+                                       open_endpoint)
 from ray_tpu_torch.exceptions import ActorError
 from ray_tpu_torch.util.debug_lock import make_lock
 
@@ -115,6 +118,10 @@ class CompiledDag:
         self._core = core
         self._store = getattr(core, "store", None) \
             or getattr(core, "_home_store", None)
+        self._kv = core.kv_op
+        # socket-channel auth rides the cluster authkey; the driver holds
+        # it programmatically (env may be unset in test drivers)
+        self._chan_authkey = getattr(core, "_authkey", None)
 
         # ---- collect stages in topological order (DFS postorder) ----
         stages: List[_BoundStage] = []
@@ -195,8 +202,10 @@ class CompiledDag:
 
         # ---- one channel per edge ----
         # edge key: (producer id | "input", consumer id); descriptor dicts
-        # are shipped to the stage loops. Edges on the driver's node use
-        # shm; an edge off it would need a socket channel (cluster mode).
+        # are shipped to the stage loops. Driver-attached edges to SAME
+        # node use shm; everything else (incl. actor<->actor off the
+        # driver's node) uses socket channels — shm needs both ends
+        # mapped into the driver's arena.
         self._in_edges: List[Any] = []      # driver-side writer endpoints
         self._out_edges: List[Any] = []     # driver-side reader endpoints
         stage_in: Dict[int, List] = {id(s): [] for s in stages}
@@ -223,10 +232,13 @@ class CompiledDag:
                         return dch.descriptor(), dch
                 ch = Channel.create(self._store, capacity, self._spin_us)
                 return ch.descriptor(), ch
-            raise NotImplementedError(
-                f"cannot compile DAG: an edge from node {prod_node!r} to "
-                f"{cons_node!r} needs a socket channel, which comes with "
-                f"cluster mode (ROADMAP.md section 1, item 5)")
+            # descriptor carries the READER's (consumer's) node host, the
+            # address that node advertises: the reader publishes only its
+            # port to the KV
+            host = (cons_node[0] if isinstance(cons_node, tuple)
+                    else "127.0.0.1")
+            cid = SocketChannel.create_id()
+            return ("sock", cid, host), None
 
         self._shm_chans: List[Channel] = []
         self._inputs: List[Any] = []
@@ -276,16 +288,30 @@ class CompiledDag:
             for ref in acks:
                 assert ray_tpu_torch.get(ref, timeout=60) == "ok"
 
-            # driver endpoints: the channels created above
-            self._inputs.extend(ch for _, ch in self._in_edges)
-            self._outputs.extend(ch for _, ch in self._out_edges)
+            # driver endpoints (socket endpoints rendezvous lazily; stage
+            # loops are already up, so their reader sides publish;
+            # appended one at a time so a failed rendezvous can still
+            # release the endpoints opened before it)
+            for desc, ch in self._in_edges:
+                self._inputs.append(
+                    ch if ch is not None else
+                    open_endpoint(desc, kv=self._kv, role="writer",
+                                  authkey=self._chan_authkey))
+            for desc, ch in self._out_edges:
+                self._outputs.append(
+                    ch if ch is not None else
+                    open_endpoint(desc, kv=self._kv, role="reader",
+                                  authkey=self._chan_authkey))
         except BaseException:
             # half-built DAG: teardown() never runs for an object whose
             # __init__ raised, so release every channel endpoint created
             # so far — their shm pins would otherwise outlive the failed
             # compile until store close
-            edge_chs = [c for _, c in self._in_edges + self._out_edges]
-            for c in edge_chs + self._shm_chans:
+            edge_chs = [c for _, c in self._in_edges + self._out_edges
+                        if c is not None] + self._shm_chans
+            opened = [c for c in self._inputs + self._outputs
+                      if all(c is not e for e in edge_chs)]
+            for c in edge_chs + opened:
                 try:
                     c.release()
                 # rtpu-lint: disable=L4 — best-effort unwind of a failed

@@ -22,8 +22,11 @@ stage (a worker with ``CUDA_VISIBLE_DEVICES=""``) therefore reads what a
 GPU stage wrote. Tensors that stay on the card cross a
 :class:`DeviceChannel`, which needs both stages in one process.
 
-Cross-node edges (``SocketChannel`` in the reference) need cluster mode's
-authkey and come with it (ROADMAP.md section 1, item 5).
+Cross-node edges ride a :class:`SocketChannel`: framed TCP with the same
+rendezvous semantics, a mutual HMAC handshake on the cluster authkey,
+and the reader's port published in the cluster KV. Its frames are the
+same pickles as the shm channel's, so a CUDA tensor crosses it as a CPU
+tensor too.
 """
 
 from __future__ import annotations
@@ -347,26 +350,314 @@ class DeviceChannel:
         self._inner.release()
 
 
-_SOCKET_REFUSAL = (
-    "socket DAG channels (cross-node edges) are not ported yet: they need "
-    "cluster mode's authkey (ROADMAP.md section 1, item 5)")
+def _recv_n(conn, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = conn.recv(n - len(buf))
+        if not chunk:
+            raise ChannelClosed
+        buf.extend(chunk)
+    return bytes(buf)
+
+
+def _mutual_auth(conn, authkey: bytes, role: str):
+    """Mutual HMAC challenge/response keyed on the cluster authkey.
+
+    Every other socket in the system (RpcServer, node/GCS links) rides
+    multiprocessing.connection's authkey handshake; this gives DAG edges
+    the same trust anchor so no unauthenticated peer can hijack an edge
+    or feed the reader a crafted pickle. Both sides send their challenge
+    first (no deadlock), then verify the peer's digest. The ROLE is bound
+    into the MAC (reader answers with b"R"+challenge, expects b"W"+...)
+    so a digest produced by one reader connection can never satisfy
+    another reader connection's check — without this, two concurrent
+    connections to the same reader form a reflection oracle."""
+    import hashlib
+    import hmac
+    import os as _os
+
+    my_tag, peer_tag = (b"R", b"W") if role == "reader" else (b"W", b"R")
+    mine = _os.urandom(16)
+    conn.sendall(mine)
+    theirs = _recv_n(conn, 16)
+    conn.sendall(hmac.new(authkey, my_tag + theirs,
+                          hashlib.sha256).digest())
+    answer = _recv_n(conn, 32)
+    expect = hmac.new(authkey, peer_tag + mine, hashlib.sha256).digest()
+    if not hmac.compare_digest(expect, answer):
+        raise PermissionError("dag channel peer failed authkey handshake")
 
 
 class SocketChannel:
-    """The reference's SPSC channel over TCP for cross-node DAG edges:
-    refused until the port's cluster mode (ROADMAP.md section 1, item 5)
-    brings its authkey and rendezvous."""
+    """SPSC channel over TCP for CROSS-NODE DAG edges (reference role:
+    the multi-node channels of python/ray/experimental/channel/ — there
+    NCCL/gRPC-backed, here a framed socket riding DCN).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_SOCKET_REFUSAL)
+    Rendezvous through the cluster KV: the READER binds an ephemeral port
+    and publishes ``dagchan:<id> -> (host, port)``; the WRITER polls the
+    key and connects. Connections complete a mutual HMAC handshake on the
+    cluster authkey before any payload flows. Same rendezvous semantics as
+    the shm channel: the writer blocks until the reader acked the previous
+    message, so at most one message is in flight per edge and FIFO pairing
+    is exact."""
+
+    def __init__(self, chan_id: str, kv, role: str,
+                 timeout_ms: int = 30_000, host: str = "127.0.0.1",
+                 authkey: bytes = None):
+        import socket as _socket
+
+        assert role in ("reader", "writer")
+        self._id = chan_id
+        self._kv = kv          # kv(op, key, value=None) -> value
+        self._role = role
+        self._host = host      # reader's node host, set at COMPILE time
+        if authkey is None:
+            from ray_tpu_torch.core.cluster.rpc import cluster_authkey
+
+            authkey = cluster_authkey()
+        self._authkey = authkey
+        self._conn = None
+        self._await_ack = False
+        self._got_any = False  # reader: saw >=1 message on this conn
+        self._sock = None
+        if role == "reader":
+            s = _socket.socket()
+            s.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+            try:
+                # listen only on the advertised interface; "" would accept
+                # from any interface on multi-homed hosts
+                s.bind((host, 0))
+            except OSError:
+                s.bind(("", 0))
+            s.listen(4)
+            self._sock = s
+            # publish only the PORT: the HOST comes from the descriptor,
+            # where the compiler wrote the node's advertised address
+            # (gethostname() resolves to loopback on stock images and
+            # would point cross-node writers at themselves)
+            self._kv("put", f"dagchan:{chan_id}", s.getsockname()[1])
+
+    @classmethod
+    def create_id(cls) -> str:
+        import os as _os
+
+        return _os.urandom(8).hex()
+
+    def descriptor(self) -> Tuple[str, str, str]:
+        return ("sock", self._id, self._host)
+
+    def _ensure_conn(self, timeout_ms: int):
+        import socket as _socket
+        import threading
+        import time as _time
+
+        if self._conn is not None:
+            return
+        if self._role == "reader":
+            # keep accepting until an AUTHENTICATED peer connects, so a
+            # stray probe can neither hijack the edge nor wedge it.
+            # Handshakes run on their own threads: a silent probe holding
+            # its connection open must not serialize behind the accept
+            # loop and starve the legitimate writer.
+            import queue as _queue
+
+            deadline = (None if timeout_ms < 0
+                        else _time.monotonic() + max(0.001, timeout_ms / 1000))
+            won: "_queue.Queue" = _queue.Queue()
+
+            def _try_auth(c):
+                try:
+                    c.settimeout(5.0)
+                    _mutual_auth(c, self._authkey, "reader")
+                    if getattr(won, "closed", False):
+                        c.close()  # a winner was already adopted
+                    else:
+                        won.put(c)
+                except Exception:  # noqa: BLE001 — unauthenticated peer
+                    try:
+                        c.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+
+            conn = None
+            while conn is None:
+                try:
+                    conn = won.get_nowait()
+                    break
+                except _queue.Empty:
+                    pass
+                if deadline is not None and _time.monotonic() >= deadline:
+                    raise TimeoutError(
+                        f"socket channel {self._id}: no authenticated "
+                        f"writer connected")
+                self._sock.settimeout(0.25)
+                try:
+                    c, _ = self._sock.accept()
+                except (TimeoutError, OSError):
+                    continue
+                threading.Thread(target=_try_auth, args=(c,),
+                                 daemon=True).start()
+            # close runner-ups: exactly one authenticated peer per edge
+            won.closed = True
+            while True:
+                try:
+                    won.get_nowait().close()
+                except (_queue.Empty, OSError):
+                    break
+        else:
+            # rendezvous (KV publish) is prompt — bounded even for -1
+            kv_deadline = _time.monotonic() + (
+                30.0 if timeout_ms < 0 else timeout_ms / 1000)
+            port = None
+            while _time.monotonic() < kv_deadline:
+                port = self._kv("get", f"dagchan:{self._id}")
+                if port:
+                    break
+                _time.sleep(0.01)
+            if not port:
+                raise TimeoutError(
+                    f"socket channel {self._id}: reader never published")
+            # retry transient handshake timeouts (reader busy vetting a
+            # probe, or not accept()ing yet because its stage is blocked
+            # downstream) until the caller's deadline; timeout_ms=-1 means
+            # BLOCK — stage loops legitimately wait minutes on slow
+            # downstreams. A wrong key fails fast.
+            deadline = (None if timeout_ms < 0
+                        else _time.monotonic() + timeout_ms / 1000)
+            conn = None
+            while True:
+                c = None
+                try:
+                    c = _socket.create_connection(
+                        (self._host, int(port)),
+                        timeout=5.0 if deadline is None else
+                        max(0.05, min(5.0, deadline - _time.monotonic())))
+                    c.settimeout(5.0)
+                    _mutual_auth(c, self._authkey, "writer")
+                    conn = c
+                    break
+                except ConnectionRefusedError:
+                    # the reader binds BEFORE publishing its port, so a
+                    # refusal means it died — fail, don't spin (matters
+                    # for timeout_ms=-1, which has no deadline)
+                    raise ChannelClosed(
+                        f"socket channel {self._id}: reader is gone")
+                except PermissionError:
+                    # wrong authkey (or EPERM from connect itself, in
+                    # which case c is still None): fail fast, no retry
+                    if c is not None:
+                        c.close()
+                    raise
+                except Exception:  # noqa: BLE001 — timeout / peer reset
+                    try:
+                        c.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+                    if deadline is not None \
+                            and _time.monotonic() >= deadline:
+                        raise TimeoutError(
+                            f"socket channel {self._id}: handshake never "
+                            f"completed")
+                    _time.sleep(0.05)
+        # drop the handshake timeout: sends must honor the caller's
+        # timeout_ms semantics (-1 = block), not a 5s auth cap
+        conn.settimeout(None if timeout_ms < 0 else timeout_ms / 1000)
+        conn.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+        self._conn = conn
+
+    def _recv_exact(self, n: int, timeout_ms: int) -> bytes:
+        self._conn.settimeout(None if timeout_ms < 0
+                              else max(0.001, timeout_ms / 1000))
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self._conn.recv(n - len(buf))
+            if not chunk:
+                raise ChannelClosed
+            buf.extend(chunk)
+        return bytes(buf)
+
+    def write(self, value: Any, timeout_ms: int = 10_000):
+        self.write_raw(_chan_dumps(value), timeout_ms)
+
+    def write_raw(self, data: bytes, timeout_ms: int = 10_000):
+        self._ensure_conn(timeout_ms)
+        if self._await_ack:
+            if self._recv_exact(1, timeout_ms) != b"A":
+                raise ChannelClosed
+            self._await_ack = False
+        self._conn.sendall(struct.pack("<Q", len(data)) + data)
+        self._await_ack = True
+
+    def read(self, timeout_ms: int = 10_000) -> Any:
+        import time as _time
+
+        deadline = (None if timeout_ms < 0
+                    else _time.monotonic() + timeout_ms / 1000)
+        while True:
+            self._ensure_conn(timeout_ms)
+            try:
+                (length,) = struct.unpack(
+                    "<Q", self._recv_exact(8, timeout_ms))
+                break
+            except ChannelClosed:
+                # EOF before the FIRST message: the adopted connection's
+                # writer abandoned its handshake attempt (auth-timeout
+                # race) and is retrying — fall back to accepting instead
+                # of wedging the edge. EOF after traffic is a real close.
+                if (self._role == "reader" and not self._got_any
+                        and self._sock is not None
+                        and (deadline is None
+                             or _time.monotonic() < deadline)):
+                    try:
+                        self._conn.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+                    self._conn = None
+                    continue
+                raise
+            except OSError as e:
+                raise TimeoutError(f"socket channel read: {e}") from e
+        if length == _CLOSE_LEN:
+            raise ChannelClosed
+        data = self._recv_exact(length, timeout_ms)
+        value = pickle.loads(data)
+        self._conn.sendall(b"A")
+        self._got_any = True
+        return value
+
+    def close(self, timeout_ms: int = 5000):
+        try:
+            self._ensure_conn(timeout_ms)
+            if self._await_ack:
+                self._recv_exact(1, timeout_ms)
+                self._await_ack = False
+            self._conn.sendall(struct.pack("<Q", _CLOSE_LEN))
+        except Exception:  # noqa: BLE001 — dead peer: nothing to close
+            pass
+
+    def release(self):
+        for s in (self._conn, self._sock):
+            if s is not None:
+                try:
+                    s.close()
+                except Exception:  # noqa: BLE001
+                    pass
+        if self._role == "reader":
+            try:
+                self._kv("del", f"dagchan:{self._id}")
+            except Exception:  # noqa: BLE001
+                pass
 
 
-def open_endpoint(desc, store=None):
-    """Open either shm channel kind from its descriptor. A socket
-    descriptor (a cross-node edge) raises NotImplementedError: socket
-    channels come with cluster mode (ROADMAP.md section 1, item 5)."""
+def open_endpoint(desc, store=None, kv=None, role: str = "reader",
+                  timeout_ms: int = 30_000, authkey: bytes = None):
+    """Open any channel kind from its descriptor: shm and device
+    channels need the store; a socket channel (a cross-node edge) takes
+    the cluster KV for its rendezvous and its role."""
     if desc[0] == "sock":
-        raise NotImplementedError(_SOCKET_REFUSAL)
+        host = desc[2] if len(desc) > 2 else "127.0.0.1"
+        return SocketChannel(desc[1], kv, role, timeout_ms, host=host,
+                             authkey=authkey)
     if store is None:
         raise RuntimeError("shm channel endpoint needs a store")
     if desc[0] == "dev":

@@ -107,13 +107,15 @@ class MeshSpec:
 
 def init_process_group(rank: int, world_size: int, device=None,
                        store_path: Optional[str] = None,
-                       init_method: Optional[str] = None, timeout=None):
+                       init_method: Optional[str] = None, timeout=None,
+                       store=None):
     """Join this process to the default process group and return its
     device. The backend follows the device: NCCL for a CUDA card (``None``
     means the card; without one this raises), gloo for ``"cpu"``. The
-    rendezvous is a ``FileStore`` at ``store_path`` when given, else
-    ``init_method`` (default ``"env://"``: ``MASTER_ADDR`` /
-    ``MASTER_PORT`` from the environment); no port is fixed here.
+    rendezvous is ``store`` (a ``torch.distributed.Store``) when given,
+    a ``FileStore`` at ``store_path``, else ``init_method`` (default
+    ``"env://"``: ``MASTER_ADDR`` / ``MASTER_PORT`` from the
+    environment); no port is fixed here.
     ``timeout`` (a ``timedelta``, default torch's) bounds the rendezvous
     and every collective of the group."""
     import torch
@@ -126,8 +128,9 @@ def init_process_group(rank: int, world_size: int, device=None,
         torch.cuda.set_device(device)
     backend = "nccl" if device.type == "cuda" else "gloo"
     kw = {} if timeout is None else {"timeout": timeout}
-    if store_path is not None:
+    if store is None and store_path is not None:
         store = dist.FileStore(store_path, world_size)
+    if store is not None:
         dist.init_process_group(backend, store=store, rank=rank,
                                 world_size=world_size, **kw)
     else:

@@ -11,12 +11,12 @@ inference). Here a deployment subclasses (or instantiates)
 compiles the graph, and serves each request as ONE dag.execute — the hot
 path never touches the scheduler.
 
-Stage actors run on the replica's node (compiled channels are shm
-there); a stage entry may carry an OPTIONS dict (resources, num_cpus,
-num_gpus, ...) to place it — e.g. the generate stage on a card of its
-own with ``num_gpus=1``. Pre-created actors work too. Stages on other
-nodes (socket channels) come with cluster mode (ROADMAP.md section 1,
-item 5).
+Stage actors default to the replica's own node (compiled channels are
+shm there); a stage entry may carry an OPTIONS dict (resources,
+num_cpus, num_gpus, ...) to pin it elsewhere — e.g. the generate stage
+on a card of its own with ``num_gpus=1``, or each stage on a node of its
+own — and the compiler picks socket channels for the cross-node edges
+automatically. Pre-created actors work too.
 
 ``LLMPipeline`` is the shipped example: tokenize -> generate (KV-cached
 greedy decode on the Llama family) -> detokenize, each hop a channel.
@@ -33,8 +33,9 @@ class PipelineDeployment:
     """Base for DAG-mode deployments: ``stages`` is a list of
     (actor_class, method, init_args) or (actor_class, method, init_args,
     options) — actors are spawned at replica init (options place them:
-    resources/num_cpus/num_gpus) and compiled into a resident
-    pipeline."""
+    resources/num_cpus/num_gpus route a stage to a fitting node, and
+    cross-node edges compile to socket channels) and compiled into a
+    resident pipeline."""
 
     def __init__(self, stages: Sequence[Tuple], capacity: int = 1 << 20,
                  spin_us: Optional[int] = None):

@@ -9,17 +9,18 @@ takes the card it holds as its current device, the gang can join one
 and a host-level collective group named ``"train"`` carries reductions
 outside the device (``parallel/collective.py``'s ``host`` backend).
 
-The default group meets through a ``FileStore`` in the runtime's session
-directory, a fresh file for each generation of the gang (each elastic
-resize is one), as ``serve/tp.py`` does: no port is probed and no host
-name resolved. A TCP rendezvous, for gangs across nodes, comes with
-cluster mode.
+The default group meets in a ``torch.distributed.TCPStore`` that rank 0
+serves on its node's advertised address (the address the node's RPC
+server binds: no host name is resolved, which gVisor may not do), as
+``ray_tpu/train/backend.py`` meets ``jax.distributed`` at a coordinator
+on rank 0's host. Rank 0 binds ``coordinator_port``, or a free port
+when it is 0, so a gang may ``SPREAD`` across nodes. Each generation of
+the gang (each elastic resize is one) meets in a fresh store.
 """
 
 from __future__ import annotations
 
 import os
-import uuid
 from dataclasses import dataclass
 from typing import Optional
 
@@ -82,6 +83,9 @@ class TorchConfig(BackendConfig):
     distributed: join every worker to one ``torch.distributed`` default
         group (NCCL on the card, gloo on the CPU), at world size 1 too.
         A reused worker leaves the group it holds and joins the new one.
+    coordinator_port: the port rank 0 serves the default group's
+        ``TCPStore`` on; 0 picks a free one, so repeated gangs never
+        collide.
     host_collectives: join the host-level collective group ``"train"``
         (the ``host`` backend of ``parallel/collective.py``).
     timeout_s: bound on the default group's rendezvous and each of its
@@ -92,6 +96,7 @@ class TorchConfig(BackendConfig):
 
     device: Optional[str] = None
     distributed: bool = False
+    coordinator_port: int = 0  # 0 = pick a free port on rank 0's node
     host_collectives: bool = True
     timeout_s: float = 1800.0
 
@@ -125,9 +130,32 @@ def _setup_device(device: Optional[str]) -> str:
     return str(dev)
 
 
-def _join_process_group(store_path: str, world_size: int, rank: int,
+# rank 0's TCPStore server for the generation it coordinates: it must
+# outlive the join, and a later generation's replaces it
+_COORDINATOR: dict = {}
+
+
+def _pick_coordinator(host: str, port: int, world_size: int,
+                      timeout_s: float) -> int:
+    """Runs on rank 0: serve the default group's ``TCPStore`` on
+    ``host`` (its node's advertised address) at ``port``, or at a free
+    one when ``port`` is 0. Returns the port bound."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    _COORDINATOR.clear()
+    store = dist.TCPStore(host, port, world_size, is_master=True,
+                          timeout=timedelta(seconds=timeout_s),
+                          wait_for_workers=False)
+    _COORDINATOR["store"] = store
+    return store.port
+
+
+def _join_process_group(host: str, port: int, world_size: int, rank: int,
                         device: Optional[str], timeout_s: float) -> None:
-    """Worker-side: join (or re-join) the default process group."""
+    """Worker-side: join (or re-join) the default process group, meeting
+    in rank 0's ``TCPStore`` at ``host:port``."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -138,8 +166,17 @@ def _join_process_group(store_path: str, world_size: int, rank: int,
         # a reused worker: an earlier gang's group, or the previous
         # generation of this one
         dist.destroy_process_group()
-    init_process_group(rank, world_size, device, store_path=store_path,
-                       timeout=timedelta(seconds=timeout_s))
+    timeout = timedelta(seconds=timeout_s)
+    if rank == 0:
+        store = _COORDINATOR["store"]
+    else:
+        # a worker that was rank 0 of an earlier generation drops its
+        # server: that generation's group is gone
+        _COORDINATOR.clear()
+        store = dist.TCPStore(host, port, world_size, is_master=False,
+                              timeout=timeout)
+    init_process_group(rank, world_size, device, store=store,
+                       timeout=timeout)
 
 
 def _leave_process_group() -> None:
@@ -147,6 +184,7 @@ def _leave_process_group() -> None:
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    _COORDINATOR.clear()
 
 
 def _join_host_collective_group(world_size: int, rank: int, group_name: str,
@@ -161,20 +199,19 @@ def _join_host_collective_group(world_size: int, rank: int, group_name: str,
 TRAIN_GROUP = "train"
 
 
+def _rank0_host(worker_group: WorkerGroup) -> str:
+    """The address rank 0's node advertises: its RPC server's host on a
+    cluster driver, loopback in the single-node runtime."""
+    from ray_tpu_torch.core import runtime_context
+
+    core = runtime_context.get_core()
+    addr_of = getattr(core, "_actor_addr", None)
+    if addr_of is None:
+        return "127.0.0.1"
+    return addr_of(worker_group.workers[0]._actor_id)[0]
+
+
 class _TorchBackend(Backend):
-    def __init__(self):
-        # names this executor's rendezvous files: a restarted gang (a new
-        # executor) never meets in a file an earlier one used
-        self._token = uuid.uuid4().hex[:12]
-
-    def _store_path(self, generation: int) -> str:
-        from ray_tpu_torch.core import runtime_context
-
-        session_dir = runtime_context.get_core()._session_dir
-        os.makedirs(session_dir, exist_ok=True)
-        return os.path.join(session_dir,
-                            f"train_store_{self._token}_{generation}")
-
     def _setup_workers(self, worker_group: WorkerGroup, cfg: TorchConfig):
         """Device and default group on every worker."""
         import ray_tpu_torch
@@ -184,12 +221,14 @@ class _TorchBackend(Backend):
             # the card each worker holds (or the one named)
             worker_group.execute(_setup_device, device)
         if cfg.distributed:
-            store = self._store_path(worker_group.generation)
             n = len(worker_group)
+            host = _rank0_host(worker_group)
+            port = worker_group.execute_single(
+                0, _pick_coordinator, host, cfg.coordinator_port, n,
+                cfg.timeout_s)
             ray_tpu_torch.get([
-                w.execute.remote(_join_process_group, store, n, rank,
-                                 None if device is None else device,
-                                 cfg.timeout_s)
+                w.execute.remote(_join_process_group, host, port, n, rank,
+                                 device, cfg.timeout_s)
                 for rank, w in enumerate(worker_group.workers)])
 
     def on_start(self, worker_group: WorkerGroup, cfg: TorchConfig):

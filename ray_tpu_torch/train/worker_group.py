@@ -143,11 +143,8 @@ class WorkerGroup:
         return opts
 
     def _unsatisfiable_detail(self, bundles: List[Dict[str, float]]) -> str:
-        """Name the first bundle the node cannot currently satisfy (the
-        local branch of ``ray_tpu/state.py``'s resource views: the port's
-        state module comes with the rest of the package: ROADMAP.md
-        section 1, item 6)."""
-        from ray_tpu_torch.core import runtime_context
+        """Name the first bundle the cluster cannot currently satisfy."""
+        from ray_tpu_torch import state as state_mod
 
         reason = None
         if self.pg is not None:
@@ -156,15 +153,15 @@ class WorkerGroup:
         if reason:
             return reason
         try:
-            res = runtime_context.get_core().state_summary()["resources"]
-            avail, total = res["available"], res["total"]
+            avail = state_mod.available_resources()
+            total = state_mod.cluster_resources()
         except (RuntimeError, KeyError):
             avail = total = {}
         for i, b in enumerate(bundles):
             short = {k: v for k, v in b.items()
                      if v > total.get(k, 0.0)} if total else {}
             if short:
-                return (f"bundle {i} {b} exceeds the node's total "
+                return (f"bundle {i} {b} exceeds the cluster's total "
                         f"resources (have {total})")
             short = {k: v for k, v in b.items()
                      if v > avail.get(k, 0.0)} if avail else {}

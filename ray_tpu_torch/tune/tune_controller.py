@@ -5,12 +5,10 @@ as actors, polls results, applies scheduler decisions, persists experiment
 state, and retries failed trials. One in-flight ``ack_and_next`` call per
 running trial; ray_tpu_torch.wait multiplexes across them.
 
-The port's copy of ``ray_tpu/tune/tune_controller.py``. Differences: the
-CPU total a ``ResourceChangingScheduler`` divides is the node's, read
-from the port's runtime (the reference reads
-``ray_tpu.state.cluster_resources()``); a trial's start is not waited
-for, so that trials which wait for a GPU another trial holds do not
-stall the loop that would free it (the reference blocks on each start).
+The port's copy of ``ray_tpu/tune/tune_controller.py``. One difference:
+a trial's start is not waited for, so that trials which wait for a GPU
+another trial holds do not stall the loop that would free it (the
+reference blocks on each start).
 """
 
 from __future__ import annotations
@@ -132,7 +130,12 @@ class TuneController:
     def run(self) -> List[Trial]:
         view = getattr(self._scheduler, "set_cluster_view", None)
         if view is not None:
-            view(_total_cpus(), self._trial_resources or {"num_cpus": 1},
+            from ray_tpu_torch import state
+            try:
+                total = state.cluster_resources().get("CPU", 1.0)
+            except Exception:  # noqa: BLE001 — view is best-effort
+                total = 1.0
+            view(total, self._trial_resources or {"num_cpus": 1},
                  lambda: self._num_live)
         self._num_live = 0
         pending = [t for t in self.trials if not t.is_finished]
@@ -364,15 +367,3 @@ class TuneController:
                 "trials": [t.snapshot() for t in self.trials],
             }, f)
         os.replace(tmp, path)
-
-
-def _total_cpus() -> float:
-    """The node's CPU total, as the runtime that runs the trials counts
-    it (its worker pool); 1.0 where the caller's core keeps no resource
-    view (a worker's)."""
-    from ray_tpu_torch.core import runtime_context
-
-    core = runtime_context.get_core()
-    if not hasattr(core, "state_summary"):
-        return 1.0
-    return core.state_summary()["resources"]["total"].get("CPU", 1.0)

@@ -121,12 +121,32 @@ def test_num_tpus_is_refused(gpu_cluster):
 
 
 def test_gpu_in_resources_and_head_are_refused():
+    """A ``"GPU"`` resource is refused; ``--head`` no longer is: a head
+    node starts the job agent, which claims a submitted job."""
     from ray_tpu_torch.core.cluster import node_server
+    from ray_tpu_torch.job import JobStatus, JobSubmissionClient
 
     with pytest.raises(ValueError, match="RTPU_GPUS"):
         node_server.NodeServer(("127.0.0.1", 1), resources={"GPU": 1})
-    with pytest.raises(SystemExit, match="item 6"):
-        node_server.main(["--gcs", "127.0.0.1:1", "--head"])
+    # this cluster's shutdown would shut down the driver installed in the
+    # runtime context: set the module's driver aside meanwhile
+    prev = runtime_context.get_core_or_none()
+    runtime_context.set_core(None)
+    c = Cluster(num_nodes=0, num_workers_per_node=1,
+                object_store_memory=32 << 20)
+    try:
+        c.add_node(head=True)
+        assert c.wait_for_nodes(1)
+        gcs = c.gcs_address
+        client = JobSubmissionClient(f"{gcs[0]}:{gcs[1]}", authkey=c.authkey)
+        jid = client.submit_job(entrypoint="echo head-agent")
+        assert client.wait_until_finished(jid, timeout=60) == \
+            JobStatus.SUCCEEDED
+        assert "head-agent" in client.get_job_logs(jid)
+        client.close()
+    finally:
+        c.shutdown()
+        runtime_context.set_core(prev)
 
 
 def test_no_gpu_node_never_takes_a_gpu_actor():

@@ -2,27 +2,16 @@
 ``ray_tpu`` (``tests/test_locality.py``).
 
 ``test_port_*`` run that file's programs on the port, held to its own
-assertions (``_torch_port_copy.py``). The last one reads the driver's
-locality counters from ``ClusterCore.locality_stats``, where the
-reference reads them through ``ray_tpu.state`` (not in the port yet:
-ROADMAP.md section 1, item 6), and drops its two ``state_summary``
-lines; the per-node fetch counters it also checks stay. ``test_parity_*``
-run the scorer's decisions through both packages.
+assertions (``_torch_port_copy.py``), the locality counters and the
+``state_summary`` lines read through ``ray_tpu_torch.state``.
+``test_parity_*`` run the scorer's decisions through both packages.
 """
 
 from __future__ import annotations
 
 from tests._torch_port_copy import export, port_copy, ref_tests
 
-_loc = port_copy("test_locality.py", rewrite=[(
-    """        from ray_tpu_torch import state as rstate
-        ls = rstate.locality_stats()""",
-    """        with core._lock:
-            ls = dict(core.locality_stats)"""), (
-    """        summary = rstate.state_summary()
-        assert summary["scheduling"]["locality"]["hits"] >= 4
-        assert summary["transfers"]["fetch_bytes"] == 0
-""", "")])
+_loc = port_copy("test_locality.py")
 export(_loc, globals(), ref_tests(_loc), fixtures=["fake_cluster"])
 
 

@@ -678,15 +678,51 @@ def test_auto_device_edge_on_a_gpu_actor(gpu_core):
 
 
 def test_socket_channels_refused():
-    """Cross-node edges (socket channels) wait for cluster mode and say
-    so, by descriptor and by class; the reference opens them."""
-    from ray_tpu_torch.dag import SocketChannel
-    from ray_tpu_torch.dag.channel import open_endpoint
+    """Cross-node edges (socket channels) are no longer refused: a
+    ``"sock"`` descriptor opens a ``SocketChannel`` whose reader
+    publishes its port under ``dagchan:<id>``, and a writer with the same
+    key hands it values, a CPU tensor among them, in order; a writer with
+    another key is turned away."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        open_endpoint(("sock", "0123", "127.0.0.1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        SocketChannel("0123", None, "reader")
+    from ray_tpu_torch.dag import SocketChannel
+    from ray_tpu_torch.dag.channel import ChannelClosed, open_endpoint
+
+    table = {}
+
+    def kv(op, key, value=None):
+        if op == "put":
+            table[key] = value
+        elif op == "get":
+            return table.get(key)
+        elif op == "del":
+            table.pop(key, None)
+
+    key, cid = b"k" * 16, SocketChannel.create_id()
+    desc = ("sock", cid, "127.0.0.1")
+    reader = open_endpoint(desc, kv=kv, role="reader", authkey=key)
+    assert isinstance(reader, SocketChannel) and reader.descriptor() == desc
+    assert isinstance(table[f"dagchan:{cid}"], int)
+    got = []
+    t = threading.Thread(target=lambda: got.extend(
+        reader.read(timeout_ms=20_000) for _ in range(3)), daemon=True)
+    t.start()
+    with pytest.raises(PermissionError):
+        open_endpoint(desc, kv=kv, role="writer", authkey=b"x" * 16,
+                      timeout_ms=3000).write("stolen", timeout_ms=3000)
+    writer = open_endpoint(desc, kv=kv, role="writer", authkey=key)
+    for v in ("a", torch.arange(6, dtype=torch.bfloat16), ("v", 2)):
+        writer.write(v, timeout_ms=20_000)
+    writer.close()
+    t.join(30)
+    assert got[0] == "a" and got[2] == ("v", 2)
+    assert got[1].dtype == torch.bfloat16 and got[1].tolist() == list(
+        range(6))
+    with pytest.raises(ChannelClosed):
+        reader.read(timeout_ms=20_000)
+    writer.release()
+    reader.release()
+    assert f"dagchan:{cid}" not in table
 
 
 @pytest.mark.parametrize("pkg", ["dag", "serve"])

@@ -823,9 +823,9 @@ def test_every_flag_row_has_a_reader():
 def test_refusals_name_their_slice(pkgs):
     """``init(address=...)`` with no GCS (and ``"ray://..."`` with no
     proxy) behind the address raises the reference's typed connect
-    errors, with nothing initialised; the compiled DAGs' socket channels
-    (cross-node edges) stay refused with NotImplementedError until their
-    slice lands, while the compiled-DAG entry points run."""
+    errors, with nothing initialised; the compiled-DAG entry points run,
+    and a socket descriptor (a cross-node edge) is no longer refused: it
+    opens a reader that publishes its port in the runtime's KV."""
     from ray_tpu_torch.core import runtime_context
 
     code = ("import {pkg} as rt\n"
@@ -861,7 +861,10 @@ def test_refusals_name_their_slice(pkgs):
     assert pid != os.getpid() and is_gpu is False
     from ray_tpu_torch.dag.channel import open_endpoint
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        open_endpoint(("sock", "0123", "127.0.0.1"))
+    ch = open_endpoint(("sock", "0123", "127.0.0.1"), kv=core.kv_op,
+                       role="reader", authkey=core._authkey)
+    assert isinstance(core.kv_op("get", "dagchan:0123"), int)
+    ch.release()
+    assert core.kv_op("get", "dagchan:0123") is None
     assert ray_tpu_torch.get(a.ping.remote()) == "pong"
     ray_tpu_torch.kill(a)

@@ -11,9 +11,10 @@ aggregation) run one package after the other; the programs on a live
 runtime run both packages at once, in two threads (the runtimes are
 independent; flags are set for both around the call).
 
-Left out: ``serve_demand_signal`` (``autoscaler_v2``, not ported), and
-the RTPU_NETEM delay of the SIGKILL chaos drill (``core/netem.py`` comes
-with cluster mode; its node-to-node edges do not exist on one node).
+Left out: ``serve_demand_signal`` (``autoscaler_v2``, not ported). The
+SIGKILL chaos drill runs here without its RTPU_NETEM delay, whose
+node-to-node edges do not exist on one node; with the delay it runs on
+two nodes in ``tests/test_torch_cluster_chaos.py``.
 The engine programs share one two-replica engine deployment a package
 (tiny, fp32; the port's on the reference's weights): a replica
 SIGKILLed under flag-off traffic, stream resumes spliced at the
